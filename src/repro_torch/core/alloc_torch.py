@@ -1,0 +1,417 @@
+"""Batched PyTorch backend for the §4.6 allocation kernels.
+
+``alloc_kernels`` made the per-event allocation a handful of sparse numpy
+matvecs; this module makes *many cells at once* one device dispatch.  The
+CSR incidence is padded to a dense ``(batch, n_nodes, width)`` layout
+(boolean ``present`` mask + float64 ``weight = cpu_need × multiplicity``),
+and the OPT=MIN water-filling steps every lane in lockstep: per freeze
+round two sequential matvecs (frozen use, unfrozen need) and one
+:func:`~repro_torch.kernels.ops.maxmin_round` (bottleneck scan + freeze
+update).  Finished lanes are masked out and idle until the slowest lane
+converges.  The loop condition reads one boolean back per round.
+
+Bit-identity contract: in float64, every per-lane result is **bit-equal**
+to ``maxmin_yields_csr`` / ``avg_yields_csr`` on that lane's CSR alone:
+
+* padding is exact — a padded column/row/lane contributes an exact
+  ``+0.0`` to every accumulation, and padded lanes start all-frozen so the
+  lockstep loop never writes them;
+* the matvec rounds every product and adds left to right over ascending
+  columns, never fusing the two (``kernels/alloc_matvec.py``);
+* the bottleneck scan visits nodes in ascending order with the 1e-15 tie
+  rule (``kernels/maxmin_round.py``).
+
+OPT=AVG is a HiGHS LP — a host simplex solver — so the batched path
+computes the LP's yield floor (``1/max(1, Λ)``, Λ = max sequential node
+load) on the device for all lanes at once and solves the small per-lane LPs
+on the host from bit-identical inputs.
+
+Device: the entry points take ``device="cuda"`` unless the caller passes
+``device="cpu"``, where the kernels run as their plain PyTorch versions.
+With no CUDA device, ``"cuda"`` raises; nothing falls back.
+
+On top sits the lockstep machinery ``sweep.run_batched`` drives: a
+:class:`TorchBatchedAllocator` turning N allocation requests into one
+padded dispatch (shapes bucketed to powers of two), and a
+:class:`LockstepDispatcher` that parks engine threads at their allocation
+points until every live lane has a request in the batch.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import Counter
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from .alloc_kernels import CSRIncidence
+
+__all__ = [
+    "resolve_device",
+    "csr_from_arrays",
+    "densify_csr",
+    "pad_batch",
+    "maxmin_yields_batch",
+    "TorchAllocBackend",
+    "TorchBatchedAllocator",
+    "LockstepDispatcher",
+]
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for an entry point's ``device`` argument; raises
+    when CUDA is asked for and missing (no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the plain "
+                "PyTorch versions of the kernels")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def csr_from_arrays(n_nodes: int, width: int, indptr, indices,
+                    data) -> CSRIncidence:
+    """A :class:`CSRIncidence` from raw arrays (e.g. an incidence carried
+    over from another program), with the dtypes the kernels expect."""
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    data = np.ascontiguousarray(data, dtype=np.float64)
+    if indptr.shape != (int(n_nodes) + 1,):
+        raise ValueError(f"indptr must have n_nodes + 1 = {int(n_nodes) + 1} "
+                         f"entries, got {indptr.shape}")
+    if indices.shape != data.shape or indices.shape[0] != indptr[-1]:
+        raise ValueError("indices/data must both hold indptr[-1] entries")
+    if indices.size and (indices.min() < 0 or indices.max() >= int(width)):
+        raise ValueError(f"column indices must lie in [0, {int(width)})")
+    return CSRIncidence(int(n_nodes), int(width), indptr, indices, data)
+
+
+def _bucket(n: int, floor: int = 1) -> int:
+    """Smallest power of two >= max(n, floor) — bounds distinct shapes."""
+    n = max(int(n), floor)
+    return 1 << (n - 1).bit_length()
+
+
+# --------------------------------------------------------------------------- #
+# padding: CSR -> dense (batch, n_nodes, width)                                #
+# --------------------------------------------------------------------------- #
+def densify_csr(
+    inc: CSRIncidence,
+    n_nodes: Optional[int] = None,
+    cols: Optional[np.ndarray] = None,
+    width: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense ``(present, weight)`` of one incidence snapshot.
+
+    ``cols`` compacts the job axis to those (sorted) columns — ascending
+    column order is preserved, so sequential accumulation over the compact
+    axis performs the identical operation sequence (every entry must lie in
+    ``cols``, which holds for engine snapshots: the incidence contains only
+    running tasks).  ``n_nodes``/``width`` pad with exact zeros.
+    """
+    N = inc.n_nodes if n_nodes is None else n_nodes
+    if cols is None:
+        W = inc.width if width is None else width
+        col_idx = inc.indices
+    else:
+        W = cols.shape[0] if width is None else width
+        col_idx = np.searchsorted(cols, inc.indices)
+    present = np.zeros((N, W), dtype=bool)
+    weight = np.zeros((N, W), dtype=np.float64)
+    rows = np.repeat(np.arange(inc.n_nodes), np.diff(inc.indptr))
+    present[rows, col_idx] = True
+    weight[rows, col_idx] = inc.data
+    return present, weight
+
+
+def pad_batch(
+    incs: Sequence[CSRIncidence],
+    actives: Sequence[np.ndarray],
+    n_nodes: Optional[int] = None,
+    width: Optional[int] = None,
+    n_lanes: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad a list of (incidence, active-mask) cells into one dense batch.
+
+    Returns ``(present, weight, active)`` with shapes ``(B, N, W)``,
+    ``(B, N, W)``, ``(B, W)``.  Extra lanes (``n_lanes > len(incs)``) are
+    all-inactive: the lockstep loop treats them as already converged.
+    """
+    B = len(incs) if n_lanes is None else n_lanes
+    N = n_nodes if n_nodes is not None else max(
+        (i.n_nodes for i in incs), default=1)
+    W = width if width is not None else max(
+        (i.width for i in incs), default=1)
+    present = np.zeros((B, N, W), dtype=bool)
+    weight = np.zeros((B, N, W), dtype=np.float64)
+    active = np.zeros((B, W), dtype=bool)
+    for b, (inc, act) in enumerate(zip(incs, actives)):
+        p, w = densify_csr(inc, n_nodes=N, width=W)
+        present[b], weight[b] = p, w
+        active[b, : act.shape[0]] = act
+    return present, weight, active
+
+
+# --------------------------------------------------------------------------- #
+# the lockstep water-filling                                                   #
+# --------------------------------------------------------------------------- #
+def maxmin_yields_batch(
+    present: torch.Tensor,
+    weight: torch.Tensor,
+    active: torch.Tensor,
+    stats: Optional[Dict[str, int]] = None,
+) -> torch.Tensor:
+    """OPT=MIN water-filling over a padded dense batch, every lane in
+    lockstep on the tensors' device.  Per lane bit-equal to
+    ``maxmin_yields_csr``.
+
+    ``present`` (B, N, W) bool, ``weight`` (B, N, W) float64, ``active``
+    (B, W) bool.  Returns (B, W) float64 yields.  ``stats``, if given,
+    gains the rounds run and the host syncs taken (one per loop test).
+    """
+    B, N, W = weight.shape
+    dev = weight.device
+    n_active = active.sum(dim=1)                                  # (B,) int64
+    i = torch.zeros((), dtype=torch.int64, device=dev)            # rounds done
+    y = torch.zeros((B, W), dtype=torch.float64, device=dev)
+    frozen = ~active
+    while True:
+        # a lane stops on full freeze or after the n_active + 1 safety cap
+        done = frozen.all(dim=1) | (i >= n_active + 1)
+        if stats is not None:
+            stats["host_syncs"] = stats.get("host_syncs", 0) + 1
+        if bool(done.all()):
+            break
+        live = ~done
+        f_use = ops.alloc_matvec(
+            weight, torch.where(frozen, y, torch.zeros_like(y)))
+        u_need = ops.alloc_matvec(weight, (~frozen).to(torch.float64))
+        y, frozen = ops.maxmin_round(f_use, u_need, present, frozen, y, live)
+        i += 1
+        if stats is not None:
+            stats["rounds"] = stats.get("rounds", 0) + 1
+    return torch.clip(y, 0.0, 1.0)
+
+
+def _avg_lp(inc: CSRIncidence, cols: np.ndarray, y_min: float) -> np.ndarray:
+    """The LP (2) solve of ``avg_yields_csr`` with the floor injected (the
+    floor is the only device-computed input; from a bit-identical ``y_min``
+    the host solve is the identical scipy call)."""
+    from scipy.optimize import linprog
+
+    m = int(cols.shape[0])
+    res = linprog(
+        c=-np.ones(m),
+        A_ub=inc.scipy_csr(cols),
+        b_ub=np.ones(inc.n_nodes),
+        bounds=[(y_min, 1.0)] * m,
+        method="highs",
+    )
+    if not res.success:  # numerically degenerate: the safe floor
+        return np.full(m, y_min)
+    return np.clip(res.x, 0.0, 1.0)
+
+
+# --------------------------------------------------------------------------- #
+# engine-pluggable backends                                                    #
+# --------------------------------------------------------------------------- #
+class TorchBatchedAllocator:
+    """Serve many cells' allocation requests as single padded dispatches.
+
+    ``allocate_many([(inc, cols, opt), ...])`` answers every request with
+    the bit-exact yields for its cell: OPT=MIN requests are compacted to
+    their running columns, padded into one ``(B, N, W)`` batch (shapes
+    bucketed to powers of two) and solved in one lockstep dispatch; OPT=AVG
+    requests get their floors Λ from one device matvec and their LPs from
+    the host solver.
+
+    ``stats`` counts dispatches, freeze rounds, host syncs (device-to-host
+    reads), the padded shapes seen, and the host-clock seconds spent serving
+    MIN and AVG requests (padding, device work and host LPs included).
+    """
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self.stats: Dict[str, object] = {
+            "dispatches": 0, "rounds": 0, "host_syncs": 0,
+            "min_shapes": Counter(), "avg_shapes": Counter(),
+            "min_s": 0.0, "avg_s": 0.0}
+
+    # -- single request (the Engine alloc_backend protocol) ---------------- #
+    def allocate(self, inc: CSRIncidence, cols: np.ndarray,
+                 opt: str = "MIN") -> np.ndarray:
+        return self.allocate_many([(inc, cols, opt)])[0]
+
+    # -- batched ----------------------------------------------------------- #
+    def allocate_many(
+        self, requests: Sequence[Tuple[CSRIncidence, np.ndarray, str]],
+    ) -> List[np.ndarray]:
+        out: List[Optional[np.ndarray]] = [None] * len(requests)
+        min_idx = [i for i, (_, c, opt) in enumerate(requests)
+                   if opt == "MIN" and c.shape[0]]
+        avg_idx = [i for i, (_, c, opt) in enumerate(requests)
+                   if opt == "AVG" and c.shape[0]]
+        for i, (_, c, opt) in enumerate(requests):
+            if opt not in ("MIN", "AVG"):
+                raise ValueError(f"unknown OPT {opt!r}")
+            if not c.shape[0]:
+                out[i] = np.zeros(0)
+        if min_idx:
+            t0 = time.perf_counter()
+            self._serve_min(requests, min_idx, out)
+            self.stats["min_s"] += time.perf_counter() - t0
+        if avg_idx:
+            t0 = time.perf_counter()
+            self._serve_avg(requests, avg_idx, out)
+            self.stats["avg_s"] += time.perf_counter() - t0
+        return out  # fully populated
+
+    def _pad_compact(self, requests, idx):
+        """Compact each request to its running columns and pad the set into
+        one bucketed batch on the device (per-lane exactness makes the
+        co-batching safe: no lane's answer depends on what else is in the
+        batch)."""
+        N = _bucket(max(requests[i][0].n_nodes for i in idx))
+        W = _bucket(max(requests[i][1].shape[0] for i in idx), 8)
+        B = _bucket(len(idx))
+        present = np.zeros((B, N, W), dtype=bool)
+        weight = np.zeros((B, N, W), dtype=np.float64)
+        active = np.zeros((B, W), dtype=bool)
+        for b, i in enumerate(idx):
+            inc, cols, _ = requests[i]
+            p, w = densify_csr(inc, n_nodes=N, cols=cols, width=W)
+            present[b], weight[b] = p, w
+            active[b, : cols.shape[0]] = True
+        dev = self.device
+        return (torch.from_numpy(present).to(dev),
+                torch.from_numpy(weight).to(dev),
+                torch.from_numpy(active).to(dev))
+
+    def _serve_min(self, requests, idx, out):
+        present, weight, active = self._pad_compact(requests, idx)
+        self.stats["dispatches"] += 1
+        self.stats["min_shapes"][tuple(weight.shape)] += 1
+        y = maxmin_yields_batch(present, weight, active, stats=self.stats)
+        y = y.cpu().numpy()
+        self.stats["host_syncs"] += 1
+        for b, i in enumerate(idx):
+            m = requests[i][1].shape[0]
+            out[i] = y[b, :m].copy()
+
+    def _serve_avg(self, requests, idx, out):
+        _, weight, _ = self._pad_compact(requests, idx)
+        self.stats["dispatches"] += 1
+        self.stats["avg_shapes"][tuple(weight.shape)] += 1
+        B, _, W = weight.shape
+        ones = torch.ones((B, W), dtype=torch.float64, device=weight.device)
+        # Λ per lane: max over nodes of the sequential row load sums
+        lams = ops.alloc_matvec(weight, ones).max(dim=1).values.cpu().numpy()
+        self.stats["host_syncs"] += 1
+        for b, i in enumerate(idx):
+            inc, cols, _ = requests[i]
+            lam = float(lams[b]) if inc.n_nodes else 0.0
+            out[i] = _avg_lp(inc, cols, 1.0 / max(1.0, lam))
+
+
+class TorchAllocBackend(TorchBatchedAllocator):
+    """One-cell engine backend: ``Engine(..., alloc_backend=
+    TorchAllocBackend())`` answers every §4.6 reallocation from the device,
+    bit-identically to the host numpy path (``allocate_incidence``)."""
+
+
+# --------------------------------------------------------------------------- #
+# lockstep dispatch: many engine threads, one device                           #
+# --------------------------------------------------------------------------- #
+class LockstepDispatcher:
+    """Coordinate N engine threads so their allocation requests land on the
+    device as one batch per scheduling round.
+
+    Each engine runs in its own thread with a :meth:`lane` backend plugged
+    in; a lane's ``allocate`` parks the thread until the driver thread
+    (:meth:`serve`) has collected a request from *every* lane that is still
+    running — engines that never allocate (batch baselines) simply run to
+    completion and drop out of the barrier via :meth:`finish_lane`.  The
+    driver answers each round with one ``allocate_many`` and wakes the
+    lanes.  Per-lane results are bit-independent of batch composition, so
+    the lockstep schedule cannot change any cell's outcome.  An exception
+    on the driver (a CUDA error included) poisons the barrier: every parked
+    and future lane raises it instead of waiting.
+    """
+
+    def __init__(self, n_lanes: int, allocator: TorchBatchedAllocator):
+        self.n_lanes = int(n_lanes)
+        self.allocator = allocator
+        self._cond = threading.Condition()
+        self._pending: Dict[int, Tuple[CSRIncidence, np.ndarray, str]] = {}
+        self._results: Dict[int, object] = {}
+        self._finished: set = set()
+        self._broken: Optional[BaseException] = None
+
+    def lane(self, i: int) -> "_Lane":
+        return _Lane(self, i)
+
+    def finish_lane(self, i: int) -> None:
+        """A lane's engine is done (or died) — it leaves the barrier."""
+        with self._cond:
+            self._finished.add(i)
+            self._cond.notify_all()
+
+    def _request(self, i, inc, cols, opt) -> np.ndarray:
+        with self._cond:
+            if self._broken is not None:
+                raise self._broken
+            self._pending[i] = (inc, cols, opt)
+            self._cond.notify_all()
+            self._cond.wait_for(
+                lambda: i in self._results or self._broken is not None)
+            res = self._results.pop(i, self._broken)
+        if isinstance(res, BaseException):
+            raise res
+        return res
+
+    def serve(self) -> None:
+        """Drive rounds until every lane finished.  Call from the thread
+        that owns the device (the sweep driver)."""
+        while True:
+            with self._cond:
+                self._cond.wait_for(
+                    lambda: len(self._pending) + len(self._finished)
+                    >= self.n_lanes)
+                if not self._pending:
+                    return              # every lane finished
+                batch = sorted(self._pending.items())
+                self._pending.clear()
+            lanes = [i for i, _ in batch]
+            try:
+                answers = self.allocator.allocate_many([r for _, r in batch])
+            except BaseException as exc:
+                with self._cond:        # poison: wake every parked/future lane
+                    self._broken = exc
+                    self._cond.notify_all()
+                raise
+            with self._cond:
+                for i, y in zip(lanes, answers):
+                    self._results[i] = y
+                self._cond.notify_all()
+
+
+class _Lane:
+    """The per-engine view of a :class:`LockstepDispatcher` (the object an
+    ``Engine`` receives as ``alloc_backend``)."""
+
+    __slots__ = ("_dispatcher", "index")
+
+    def __init__(self, dispatcher: LockstepDispatcher, index: int):
+        self._dispatcher = dispatcher
+        self.index = index
+
+    def allocate(self, inc: CSRIncidence, cols: np.ndarray,
+                 opt: str = "MIN") -> np.ndarray:
+        if not cols.shape[0]:
+            return np.zeros(0)          # nothing running: no round trip
+        return self._dispatcher._request(self.index, inc, cols, opt)
