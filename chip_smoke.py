@@ -4,12 +4,14 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 It imports the port only.  The CUDA kernels are built from the sources in
-the checkout at first use (``build/repro_torch/``).  Phases, one JSON line
-each; the first phase that fails ends the run with exit code 1:
+the checkout at first use (``build/repro_torch/``), one ``nvcc`` per source,
+all started together.  Phases, one JSON line each; the first phase that
+fails ends the run with exit code 1:
 
-1. device    — the card's name and power limit (nvidia-smi), kernel build;
-2. kernels   — each CUDA kernel against its plain PyTorch version on the
-               card, bit for bit (the matvec also against a numpy loop;
+1. device    — the card's name and power limit (nvidia-smi), the build of
+               every kernel library (seconds, ptxas registers and spills);
+2. kernels   — each allocation kernel against its plain PyTorch version on
+               the card, bit for bit (the matvec also against a numpy loop;
                the round on bottlenecks made of near-ties, and most lanes
                must bind on a near-tie that is not exact);
 3. allocator — the batched OPT=MIN water-filling and the OPT=AVG floor on
@@ -22,15 +24,39 @@ each; the first phase that fails ends the run with exit code 1:
                (timed, with its allocation share);
                the kernel launch counts are zeroed just before and read just
                after; ``torch.profiler`` traces the card's activity over the
-               run for the device's busy share;
-5. kernels line — per kernel: launches in phase 4, the largest difference
-               from its plain version, device times (CUDA events around a
-               CUDA graph of many launches) of the kernel, its plain version
-               and a library call computing the same function, and the
-               least time the card could take (bytes over 3.35 TB/s or FP64
-               operations over 34 TFLOP/s, whichever is larger, counting
-               what these inputs need: the round reads the presence rows of
-               its binding nodes only).
+               run for the device's busy share; peak device memory is
+               counted from the allocation at the phase's start;
+5. serve kernels — flash attention, flash decode and the RG-LRU scan
+               against their plain versions on the card, fp32 and bf16, at
+               RecurrentGemma-2B's shapes (a prompt of 2,100 tokens under
+               the 2,048 window), without a window, non-causal, at
+               Llama-3-8B's GQA widths, per-request decode lengths past the
+               cache, T = 1 and a long T (fp32 2e-5, bf16 2e-2, the RG-LRU
+               atol 1e-5 / rtol 1e-4: the reference's kernel tolerances);
+6. model check — RecurrentGemma-2B at full width, one super-block deep
+               (RG-LRU, RG-LRU, local attention), fp32, seeded weights:
+               prefill of 2,100 tokens and 8 decode steps on the card
+               (kernels) and on the host CPU (plain versions), logits
+               compared (atol = rtol = 2e-3) and greedy tokens counted;
+7. serve     — RecurrentGemma-2B at full width and depth (26 layers, bf16
+               weights and cache) through ``BatchedServer``: 4 slots,
+               cache 4096, 8 requests of 1,024-2,000 prompt tokens, 96 new
+               tokens each, so that decode wraps the 2,048 ring; every
+               request must finish with finite logits, and the launch
+               counts, zeroed just before and read just after, must show
+               every serving kernel; then the serve's last wave (its last
+               4 requests, the served prompts, three of which wrap the
+               ring) is replayed on a fresh server under ``torch.profiler``
+               for the card's busy share and kernel time by name;
+8. kernels line — per kernel: launches on its path (phase 4 or 7), the
+               largest difference from its plain version, device times
+               (CUDA events around a CUDA graph of many launches) of the
+               kernel, its plain version and a library call computing the
+               same function, and the least time the card could take
+               (bytes over 3.35 TB/s, or operations over the rate of the
+               inputs' precision — bf16 on the tensor cores for bf16
+               inputs, whatever the kernel itself uses — whichever is
+               larger, counting what these inputs need).
 
 Then the nvidia-smi line again, the kernels line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -48,14 +74,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and FP64 (non-tensor) peak
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 (non-tensor)
+# peaks, bf16 dense tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 N_JOBS, N_NODES, LOAD = 1000, 128, 0.7
-MIN_SEEDS = 16          # GreedyP */OPT=MIN cells in phase 4
+MIN_SEEDS = 16          # GreedyP */OPT=MIN cells in phase 4 (slice)
 
 _NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the round
+
+# the port's kernels, by the names the profiler gives them
+_PORT_KERNELS = ("alloc_matvec_kernel", "maxmin_round_kernel", "attn_kernel",
+                 "decode_combine_kernel", "rglru_scan_kernel")
 
 _OUTCOMES = ("max_stretch", "mean_stretch", "makespan", "underutilization",
              "n_pmtn", "n_mig", "pmtn_per_job", "mig_per_job",
@@ -204,9 +237,9 @@ def eager_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=FP64_OPS_PER_S):
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / FP64_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops
             else "operations")
 
@@ -222,17 +255,19 @@ def phase_device(torch, cuda_lib):
     smi_line = smi.splitlines()[0] if smi else "nvidia-smi: no output"
     print(smi_line, flush=True)
     t0 = time.perf_counter()
-    cuda_lib.load_library()
+    cuda_lib.load_all()
     build_s = time.perf_counter() - t0
-    info = cuda_lib.build_info()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    libraries = {
+        name: {"build_s": info["build_s"], "cached": info["cached"],
+               "path": info["path"], "flags": info["flags"],
+               "ptxas": [ln.strip() for ln in info["log"].splitlines()
+                         if "registers" in ln or "spill" in ln]}
+        for name, info in cuda_lib.build_info().items()}
     emit({"phase": "device", "ok": True, "nvidia_smi": smi_line,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "build_cached": info["cached"],
-          "library": info["path"], "ptxas": ptxas})
+          "build_s": build_s, "libraries": libraries})
     return smi_line
 
 
@@ -358,9 +393,10 @@ def start_device_trace(torch):
 
 def device_busy(prof, wall_s):
     """What the trace saw of the card: seconds in which a kernel or a copy
-    ran (the union of their intervals), that over ``wall_s``, and seconds
-    summed by kind (the port's kernels, other kernels, copies)."""
-    spans, by_kind = [], Counter()
+    ran (the union of their intervals), that over ``wall_s``, seconds
+    summed by kind (the port's kernels, other kernels, copies) and the
+    eight names with the most summed seconds."""
+    spans, by_kind, by_name = [], Counter(), Counter()
     for e in prof.events():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -368,11 +404,12 @@ def device_busy(prof, wall_s):
         spans.append((start, end))
         if e.name.startswith(("Memcpy", "Memset")):
             kind = "copies"
-        elif "alloc_matvec_kernel" in e.name or "maxmin_round_kernel" in e.name:
+        elif any(k in e.name for k in _PORT_KERNELS):
             kind = "port_kernels"
         else:
             kind = "other_kernels"
         by_kind[kind] += (end - start) / 1e6
+        by_name[e.name[:80]] += (end - start) / 1e6
     if not spans:
         return {"busy_s": None, "busy_share": None, "device_events": 0,
                 "note": "the trace holds no device activity: not measured"}
@@ -386,7 +423,23 @@ def device_busy(prof, wall_s):
             hi = max(hi, end)
     busy_us += hi - lo
     return {"busy_s": busy_us / 1e6, "busy_share": busy_us / 1e6 / wall_s,
-            "device_events": len(spans), "summed_s": dict(by_kind)}
+            "device_events": len(spans), "summed_s": dict(by_kind),
+            "top_kernels_s": dict(by_name.most_common(8))}
+
+
+def stop_device_trace(prof, trace_error, wall_s):
+    """:func:`device_busy` of a trace from :func:`start_device_trace`, or
+    why it was not measured."""
+    if prof is None:
+        return {"busy_s": None, "busy_share": None,
+                "note": f"the profiler did not start ({trace_error}): "
+                        f"not measured"}
+    try:
+        prof.stop()
+        return device_busy(prof, wall_s)
+    except Exception as exc:  # noqa: BLE001 — then not measured
+        return {"busy_s": None, "busy_share": None,
+                "note": f"{type(exc).__name__}: {exc}: not measured"}
 
 
 def phase_slice(torch, np):
@@ -406,26 +459,17 @@ def phase_slice(torch, np):
         make_trace_ir(c.workload)               # traces are set-up, not run
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     prof, trace_error = start_device_trace(torch)
     ops.reset_launches()
     t0 = time.perf_counter()
     res = run_batched(cells, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
-    peak = torch.cuda.max_memory_allocated()
-    if prof is None:
-        busy = {"busy_s": None, "busy_share": None,
-                "note": f"the profiler did not start ({trace_error}): "
-                        f"not measured"}
-    else:
-        try:
-            prof.stop()
-            busy = device_busy(prof, wall)
-        except Exception as exc:  # noqa: BLE001 — then not measured
-            busy = {"busy_s": None, "busy_share": None,
-                    "note": f"{type(exc).__name__}: {exc}: not measured"}
-        del prof
+    launches = {k: ops.launches[k] for k in ("alloc_matvec", "maxmin_round")}
+    peak = torch.cuda.max_memory_allocated() - base
+    busy = stop_device_trace(prof, trace_error, wall)
+    del prof
 
     t1 = time.perf_counter()
     host_alloc = TimedHostAlloc()
@@ -451,6 +495,7 @@ def phase_slice(torch, np):
           "host_syncs": stats["host_syncs"], "launches": launches,
           "serve_min_s": stats["min_s"], "serve_avg_s": stats["avg_s"],
           "max_memory_allocated_bytes": peak,
+          "allocated_before_bytes": base,
           "min_shapes": {str(k): v for k, v
                          in stats["min_shapes"].most_common(6)},
           "avg_shapes": {str(k): v for k, v
@@ -463,6 +508,477 @@ def phase_slice(torch, np):
         raise PhaseFailed("the slice disagrees with the host run or did not "
                           "reach a kernel")
     return launches, stats
+
+
+# --------------------------------------------------------------------------- #
+# the serving path (RecurrentGemma-2B)                                         #
+# --------------------------------------------------------------------------- #
+ARCH = "recurrentgemma-2b"
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # the reference's kernel tests
+RGLRU_ATOL, RGLRU_RTOL = 1e-5, 1e-4
+MODEL_TOL = 2e-3                               # the reference's model tests
+CHECK_PROMPT, CHECK_STEPS, CHECK_CACHE = 2100, 8, 4096
+SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 4096, 8, 96
+SERVE_SEED = 60          # three of its eight prompts decode past 2,048
+
+
+def _dtype_name(torch, dt):
+    return {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dt]
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _within(torch, a, b, atol, rtol):
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def _randn(torch, gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def attention_pairs(Tq, Tk, causal, window, q_offset=0):
+    """(row, key) pairs the masks keep: the work attention must do."""
+    total = 0
+    for i in range(Tq):
+        pos = q_offset + i
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        hi = min(Tk, pos + 1) if causal else Tk
+        total += max(0, hi - lo)
+    return total
+
+
+def phase_serve_kernels(torch):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, flash_decode_cuda,
+        flash_decode_plain)
+    from repro_torch.kernels.rglru_scan import (linear_recurrence_plain,
+                                                rglru_scan_cuda)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    checks = []
+    for dt in (torch.float32, torch.bfloat16):
+        name = _dtype_name(torch, dt)
+        # (label, B, Tq, Tk, H, Hkv, hd, causal, window, q_offset)
+        for case in [
+                ("recurrentgemma_prefill", 1, 2100, 2100, 10, 1, 256, True,
+                 2048, 0),
+                ("causal_no_window", 1, 700, 700, 10, 1, 256, True, 0, 0),
+                ("non_causal_ragged", 2, 130, 200, 4, 4, 64, False, 0, 0),
+                ("llama3_8b_gqa", 1, 1024, 1024, 32, 8, 128, True, 0, 0),
+                ("q_offset", 2, 64, 512, 4, 1, 128, True, 0, 448)]:
+            label, B, Tq, Tk, H, Hkv, hd, causal, window, off = case
+            q = _randn(torch, gen, (B, Tq, H, hd), dt)
+            k = _randn(torch, gen, (B, Tk, Hkv, hd), dt)
+            v = _randn(torch, gen, (B, Tk, Hkv, hd), dt)
+            got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       q_offset=off)
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, q_offset=off)
+            torch.cuda.synchronize()
+            checks.append({"kernel": "flash_attention", "case": label,
+                           "dtype": name, "shape": [B, Tq, Tk, H, Hkv, hd],
+                           "window": window, "max_abs_err": _err(got, want),
+                           "ok": got.dtype == dt and _within(
+                               torch, got, want, TOL[name], TOL[name])})
+        # (label, B, S, H, Hkv, hd, q dtype, lengths)
+        for case in [
+                ("recurrentgemma_decode", 4, 2048, 10, 1, 256, dt,
+                 [5, 2047, 2048, 5000]),
+                ("fp32_query_cache_" + name, 4, 2048, 10, 1, 256,
+                 torch.float32, [1500, 2100, 17, 4095]),
+                ("llama3_8b_gqa", 3, 512, 32, 8, 128, dt, [0, 300, 511])]:
+            label, B, S, H, Hkv, hd, qdt, lens = case
+            q = _randn(torch, gen, (B, H, hd), qdt)
+            k = _randn(torch, gen, (B, S, Hkv, hd), dt)
+            v = _randn(torch, gen, (B, S, Hkv, hd), dt)
+            cur = torch.tensor(lens, device="cuda")
+            got = flash_decode_cuda(q, k, v, cur)
+            want = flash_decode_plain(q, k, v, cur)
+            torch.cuda.synchronize()
+            tol = TOL[name]
+            checks.append({"kernel": "flash_decode", "case": label,
+                           "dtype": [_dtype_name(torch, qdt), name],
+                           "shape": [B, S, H, Hkv, hd], "lens": lens,
+                           "max_abs_err": _err(got, want),
+                           "ok": got.dtype == qdt and _within(
+                               torch, got, want, tol, tol)})
+    for B, T, W in [(4, 1, 2560), (1, 2100, 2560), (2, 37, 100)]:
+        a = torch.sigmoid(_randn(torch, gen, (B, T, W), torch.float32)) * 0.9
+        b = _randn(torch, gen, (B, T, W), torch.float32)
+        h0 = _randn(torch, gen, (B, W), torch.float32)
+        h, hT = rglru_scan_cuda(a, b, h0)
+        hp, hTp = linear_recurrence_plain(a, b, h0)
+        torch.cuda.synchronize()
+        checks.append({"kernel": "rglru_scan", "shape": [B, T, W],
+                       "max_abs_err": max(_err(h, hp), _err(hT, hTp)),
+                       "bit_equal": bool(torch.equal(h, hp)
+                                         and torch.equal(hT, hTp)),
+                       "ok": _within(torch, h, hp, RGLRU_ATOL, RGLRU_RTOL)
+                       and _within(torch, hT, hTp, RGLRU_ATOL, RGLRU_RTOL)})
+    ok = all(c["ok"] for c in checks)
+    emit({"phase": "serve kernels", "ok": ok,
+          "tolerance": {"float32": TOL["float32"], "bfloat16": TOL["bfloat16"],
+                        "rglru_scan": [RGLRU_ATOL, RGLRU_RTOL]},
+          "checks": checks})
+    if not ok:
+        raise PhaseFailed("a serving kernel disagrees with its plain version")
+
+
+def phase_model_check(torch, np):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import backbone
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=3)
+    gen = torch.Generator()                     # weights drawn on the host
+    gen.manual_seed(2402)
+    t0 = time.perf_counter()
+    host = backbone.init_params(cfg, gen, dtype=torch.float32, device="cpu")
+    card = _tree_map(lambda t: t.to("cuda"), host)
+    init_s = time.perf_counter() - t0
+    prompt = torch.as_tensor(np.random.default_rng(2402).integers(
+        1, cfg.vocab, size=(1, CHECK_PROMPT)))
+
+    def run(params, device, feed=None):
+        """Prefill, then decode the tokens of ``feed`` (when None, the run's
+        own greedy picks).  Returns the logits of every step on the host,
+        the tokens fed and the seconds taken."""
+        caches = backbone.init_cache(cfg, 1, CHECK_CACHE,
+                                     dtype=torch.float32, device=device)
+        t = time.perf_counter()
+        logits, caches = backbone.prefill(
+            cfg, params, {"tokens": prompt.to(device)}, caches)
+        out, fed = [logits.float().cpu()], []
+        for i in range(CHECK_STEPS):
+            tok = feed[i] if feed is not None else torch.argmax(out[-1], -1)
+            fed.append(tok)
+            logits, caches = backbone.decode_step(
+                cfg, params, tok.to(device), caches, CHECK_PROMPT + i)
+            out.append(logits.float().cpu())
+        return out, fed, time.perf_counter() - t
+
+    host_logits, feed, host_s = run(host, "cpu")
+    ops.reset_launches()
+    card_logits, _, card_s = run(card, "cuda", feed)
+    launches = {k: ops.launches[k] for k in
+                ("flash_attention", "flash_decode", "rglru_scan")}
+    diffs = [float((c - h).abs().max())
+             for c, h in zip(card_logits, host_logits)]
+    within = all(bool(((c - h).abs() <= MODEL_TOL + MODEL_TOL * h.abs()).all())
+                 for c, h in zip(card_logits, host_logits))
+    agree = sum(int(torch.argmax(c)) == int(torch.argmax(h))
+                for c, h in zip(card_logits, host_logits))
+    finite = all(bool(torch.isfinite(c).all()) for c in card_logits)
+    ok = within and finite and all(v > 0 for v in launches.values())
+    emit({"phase": "model check", "ok": ok, "arch": ARCH,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": "float32",
+          "prompt": CHECK_PROMPT, "decode_steps": CHECK_STEPS,
+          "cache_len": CHECK_CACHE, "window": cfg.window,
+          "tolerance": {"atol": MODEL_TOL, "rtol": MODEL_TOL},
+          "max_abs_logit_diff": diffs, "greedy_agree": agree,
+          "greedy_total": len(card_logits), "launches": launches,
+          "init_s": init_s, "host_s": host_s, "card_s": card_s})
+    if not ok:
+        raise PhaseFailed("the card's logits disagree with the host's")
+    del host, card
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _leaves(tree):
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def phase_serve(torch, np):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import backbone
+    from repro_torch.train.serve import BatchedServer, Request, ServeConfig
+
+    class TimedServer(BatchedServer):
+        """The server, with each prefill and decode step synchronised and
+        timed, and its logits checked for finite values."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.prefill_s = self.decode_s = 0.0
+            self.prefill_tokens = self.decode_steps = 0
+            self.finite = True
+
+        def _timed(self, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = fn(*args)
+            self.finite &= bool(torch.isfinite(logits).all())
+            return logits, caches, time.perf_counter() - t0
+
+        def _prefill_impl(self, tokens, caches_slot, true_len):
+            logits, caches, dt = self._timed(super()._prefill_impl, tokens,
+                                             caches_slot, true_len)
+            self.prefill_s += dt
+            self.prefill_tokens += true_len
+            return logits, caches
+
+        def _decode_impl(self, tokens, caches, pos):
+            logits, caches, dt = self._timed(super()._decode_impl, tokens,
+                                             caches, pos)
+            self.decode_s += dt
+            self.decode_steps += 1
+            return logits, caches
+
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    params = backbone.init_params(cfg, gen, dtype=torch.bfloat16,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    srv = TimedServer(cfg, params, ServeConfig(
+        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, seed=SERVE_SEED),
+        device="cuda")
+    rng = np.random.default_rng(SERVE_SEED)
+    lens = rng.integers(1024, 2001, SERVE_REQUESTS)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
+                    max_new=SERVE_MAX_NEW) for i, n in enumerate(lens)]
+    for r in reqs:
+        srv.submit(r)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    steps = decode_tokens = 0
+    while srv.queue or any(r is not None for r in srv.slot_req):
+        decode_tokens += srv.step()
+        steps += 1
+        if steps > 10_000:
+            raise PhaseFailed("the serve loop did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in
+                ("flash_attention", "flash_decode", "rglru_scan")}
+    peak = torch.cuda.max_memory_allocated()
+    last_pos = [len(r.prompt) + len(r.out) - 2 for r in reqs]
+    wrapped = sum(p >= cfg.window for p in last_pos)
+    finished = all(r.done and len(r.out) == SERVE_MAX_NEW for r in reqs)
+
+    # The serve's last wave (its last SERVE_SLOTS requests: the served
+    # prompts and lengths, the ring wrapping) replayed on a fresh server
+    # under the profiler, for the card's busy share and kernel time by
+    # name; every other number here comes from the untraced run above.
+    tsrv = TimedServer(cfg, params, ServeConfig(
+        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, seed=SERVE_SEED),
+        device="cuda")
+    for r in reqs[-SERVE_SLOTS:]:
+        tsrv.submit(Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new))
+    torch.cuda.synchronize()
+    prof, trace_error = start_device_trace(torch)
+    t1 = time.perf_counter()
+    tsrv.run_until_drained()
+    torch.cuda.synchronize()
+    trace_wall = time.perf_counter() - t1
+    trace = stop_device_trace(prof, trace_error, trace_wall)
+    trace.update({"requests": [r.rid for r in reqs[-SERVE_SLOTS:]],
+                  "wall_s": trace_wall, "prefill_s": tsrv.prefill_s,
+                  "prefill_tokens": tsrv.prefill_tokens,
+                  "decode_s": tsrv.decode_s,
+                  "decode_steps": tsrv.decode_steps})
+    del prof, tsrv
+    ok = (finished and srv.finite and wrapped > 0
+          and all(v > 0 for v in launches.values()))
+    emit({"phase": "serve", "ok": ok, "arch": ARCH,
+          "layers": cfg.n_layers, "params": sum(
+              t.numel() for t in _leaves(params)),
+          "dtype": "bfloat16", "cache_dtype": "bfloat16",
+          "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+          "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
+          "prompt_lens": lens.tolist(), "requests_past_window": wrapped,
+          "all_finished": finished, "logits_finite": srv.finite,
+          "wall_s": wall, "steps": steps, "decode_tokens": decode_tokens,
+          "prefill_tokens": srv.prefill_tokens, "prefill_s": srv.prefill_s,
+          "prefill_tokens_per_s": srv.prefill_tokens / srv.prefill_s,
+          "decode_steps": srv.decode_steps, "decode_s": srv.decode_s,
+          "decode_tokens_per_s": decode_tokens / srv.decode_s,
+          "ms_per_decode_step": srv.decode_s / srv.decode_steps * 1e3,
+          "init_s": init_s, "weight_bytes": weight_bytes,
+          "max_memory_allocated_bytes": peak, "launches": launches,
+          "first_outputs": [r.out[:8] for r in reqs[:2]],
+          "traced_window": trace})
+    if not ok:
+        raise PhaseFailed("a request did not finish, a logit was not "
+                          "finite, no request wrapped the window, or a "
+                          "serving kernel was not launched")
+    del srv, params
+    torch.cuda.empty_cache()
+    return launches, lens
+
+
+def serve_kernel_entries(torch, np, launches, prompt_lens):
+    """The kernels line's entries of the serving kernels, each at the shape
+    its path used most (bf16, as served): the median prompt for prefill
+    attention, the four slots at mid-run positions for decode, and the
+    decode step (B = 4, T = 1) for the RG-LRU scan, which launches it most;
+    the scan's prefill shape is reported beside."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, flash_decode_cuda,
+        flash_decode_plain)
+    from repro_torch.kernels.rglru_scan import (linear_recurrence_plain,
+                                                rglru_scan_cuda)
+
+    cfg = get_config(ARCH)
+    H, Hkv, hd, W, win = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          cfg.lru_width, cfg.window)
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    entries = []
+
+    # ---- flash attention: one prefill of the median prompt ----------------
+    L = int(np.median(prompt_lens))
+    q = _randn(torch, gen, (1, L, H, hd), bf)
+    k = _randn(torch, gen, (1, L, Hkv, hd), bf)
+    v = _randn(torch, gen, (1, L, Hkv, hd), bf)
+    got = flash_attention_cuda(q, k, v, causal=True, window=win)
+    want = flash_attention_plain(q, k, v, causal=True, window=win)
+    pos = torch.arange(L, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_out = sdpa().transpose(1, 2)
+    pairs = attention_pairs(L, L, True, win)
+    n_bytes = 2 * (2 * L * H * hd + 2 * L * Hkv * hd)
+    n_ops = 4 * hd * H * pairs
+    fa_bound, fa_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+    entries.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention.cu",
+        "wrapper": "src/repro_torch/kernels/flash_attention.py",
+        "replaces": "src/repro/kernels/flash_attention.py:78",
+        "launches": launches["flash_attention"],
+        "shape": [1, L, H, Hkv, hd], "dtype": "bfloat16", "window": win,
+        "max_abs_err": _err(got, want),
+        "library_max_abs_diff": _err(got, lib_out),
+        "ms": device_ms(torch, lambda: flash_attention_cuda(
+            q, k, v, causal=True, window=win), 20),
+        "eager_ms": eager_ms(torch, lambda: flash_attention_cuda(
+            q, k, v, causal=True, window=win), 20),
+        "plain_ms": device_ms(torch, lambda: flash_attention_plain(
+            q, k, v, causal=True, window=win), 2),
+        "library": "F.scaled_dot_product_attention",
+        "library_ms": device_ms(torch, sdpa, 20),
+        "bound_ms": fa_bound, "bound_by": fa_by,
+        "bound_rate": "bf16 tensor cores 989 TFLOP/s; HBM 3.35 TB/s",
+        "bound_ms_fp32_cuda_cores": bound_ms(n_bytes, n_ops,
+                                             FP32_OPS_PER_S)[0],
+    })
+
+    # ---- flash decode: the four slots at mid-run positions ----------------
+    S = min(SERVE_CACHE, win)
+    B = SERVE_SLOTS
+    lens_list = [int(n) + SERVE_MAX_NEW // 2 for n in prompt_lens[:B]]
+    lens = torch.tensor(lens_list, device="cuda")
+    q = _randn(torch, gen, (B, H, hd), bf)
+    kc = _randn(torch, gen, (B, S, Hkv, hd), bf)
+    vc = _randn(torch, gen, (B, S, Hkv, hd), bf)
+    got = flash_decode_cuda(q, kc, vc, lens)
+    want = flash_decode_plain(q, kc, vc, lens)
+    valid = [min(n + 1, S) for n in lens_list]
+    dmask = (torch.arange(S, device="cuda")[None, :]
+             < torch.tensor(valid, device="cuda")[:, None])[:, None, None, :]
+    qd, kd, vd = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask,
+                                              enable_gqa=True)
+    lib_out = sdpa_decode()[:, :, 0]
+    n_bytes = 2 * (2 * B * H * hd + sum(valid) * Hkv * 2 * hd)
+    n_ops = 4 * hd * H * sum(valid)
+    fd_bound, fd_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
+    entries.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention.cu",
+        "wrapper": "src/repro_torch/kernels/flash_attention.py",
+        "replaces": "src/repro/kernels/flash_attention.py:162",
+        "launches": launches["flash_decode"],
+        "shape": [B, S, H, Hkv, hd], "lens": lens_list, "dtype": "bfloat16",
+        "max_abs_err": _err(got, want),
+        "library_max_abs_diff": _err(got, lib_out),
+        "ms": device_ms(torch, lambda: flash_decode_cuda(q, kc, vc, lens),
+                        200),
+        "eager_ms": eager_ms(torch, lambda: flash_decode_cuda(
+            q, kc, vc, lens), 200),
+        "plain_ms": device_ms(torch, lambda: flash_decode_plain(
+            q, kc, vc, lens), 20),
+        "library": "F.scaled_dot_product_attention",
+        "library_ms": device_ms(torch, sdpa_decode, 200),
+        "bound_ms": fd_bound, "bound_by": fd_by,
+        "bound_rate": "HBM 3.35 TB/s; bf16 tensor cores 989 TFLOP/s",
+    })
+
+    # ---- RG-LRU scan: the decode step, and one prefill beside it ----------
+    def scan_inputs(B, T):
+        a = torch.sigmoid(_randn(torch, gen, (B, T, W), torch.float32)) * 0.9
+        return (a, _randn(torch, gen, (B, T, W), torch.float32),
+                _randn(torch, gen, (B, W), torch.float32))
+
+    def scan_bound(B, T):
+        return bound_ms(4 * (3 * B * T * W + 2 * B * W), 2 * B * T * W,
+                        FP32_OPS_PER_S)
+
+    a, b, h0 = scan_inputs(SERVE_SLOTS, 1)
+    h, hT = rglru_scan_cuda(a, b, h0)
+    hp, hTp = linear_recurrence_plain(a, b, h0)
+    rg_bound, rg_by = scan_bound(SERVE_SLOTS, 1)
+    pa, pb, ph0 = scan_inputs(1, L)
+    ph, phT = rglru_scan_cuda(pa, pb, ph0)
+    pph, pphT = linear_recurrence_plain(pa, pb, ph0)
+    entries.append({
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru.cu",
+        "wrapper": "src/repro_torch/kernels/rglru_scan.py",
+        "replaces": "src/repro/kernels/rglru_scan.py:63",
+        "launches": launches["rglru_scan"],
+        "shape": [SERVE_SLOTS, 1, W], "dtype": "float32",
+        "max_abs_err": max(_err(h, hp), _err(hT, hTp), _err(ph, pph),
+                           _err(phT, pphT)),
+        "ms": device_ms(torch, lambda: rglru_scan_cuda(a, b, h0), 200),
+        "eager_ms": eager_ms(torch, lambda: rglru_scan_cuda(a, b, h0), 200),
+        "plain_ms": device_ms(torch, lambda: linear_recurrence_plain(
+            a, b, h0), 200),
+        "library": None, "library_ms": None,
+        "bound_ms": rg_bound, "bound_by": rg_by,
+        "prefill": {"shape": [1, L, W],
+                    "ms": device_ms(torch, lambda: rglru_scan_cuda(
+                        pa, pb, ph0), 20),
+                    "plain_ms": device_ms(torch, lambda: (
+                        linear_recurrence_plain(pa, pb, ph0)), 1),
+                    "bound_ms": scan_bound(1, L)[0]},
+    })
+    tol = {"flash_attention": TOL["bfloat16"], "flash_decode": TOL["bfloat16"],
+           "rglru_scan": RGLRU_ATOL}
+    ok = all(e["launches"] > 0 and e["max_abs_err"] <= tol[e["name"]]
+             for e in entries)
+    return entries, ok
 
 
 def phase_kernel_line(torch, np, launches, stats):
@@ -538,7 +1054,7 @@ def phase_kernel_line(torch, np, launches, stats):
     }
     kernels = [matvec, round_]
     ok = all(e["launches"] > 0 and e["max_abs_err"] == 0.0 for e in kernels)
-    return {"kernels": kernels}, ok
+    return kernels, ok
 
 
 def main() -> int:
@@ -566,8 +1082,19 @@ def main() -> int:
         phase_allocator(torch, np)
         phase = "slice"
         launches, stats = phase_slice(torch, np)
+        phase = "serve kernels"
+        phase_serve_kernels(torch)
+        phase = "model check"
+        phase_model_check(torch, np)
+        phase = "serve"
+        serve_launches, prompt_lens = phase_serve(torch, np)
         phase = "kernels line"
-        line, ok = phase_kernel_line(torch, np, launches, stats)
+        alloc_entries, alloc_ok = phase_kernel_line(torch, np, launches,
+                                                    stats)
+        serve_entries, serve_ok = serve_kernel_entries(
+            torch, np, serve_launches, prompt_lens)
+        line, ok = {"kernels": alloc_entries + serve_entries}, (
+            alloc_ok and serve_ok)
     except Exception as exc:  # noqa: BLE001 — reported, then a failing exit
         traceback.print_exc()
         emit({"phase": phase, "ok": False,

@@ -1,10 +1,21 @@
 """repro_torch — the PyTorch/CUDA port of the DFRS scheduling reproduction.
 
-It runs the paper's scheduling path (a Lublin trace through the event-loop
-engine, with the §4.6 OPT=MIN / OPT=AVG reallocations batched onto one
-device) with hand-written Hopper kernels for the water-filling.  The public
-surface is :mod:`repro_torch.api`.  The package imports ``torch``, numpy
-and scipy only.
+It runs two paths of the reference on one device, each with hand-written
+Hopper kernels:
+
+* the paper's scheduling path — a Lublin trace through the event-loop
+  engine, with the §4.6 OPT=MIN / OPT=AVG reallocations batched onto the
+  device and the water-filling in CUDA; its public surface is
+  :mod:`repro_torch.api`;
+* the model substrate's serving path for RecurrentGemma-2B —
+  :mod:`repro_torch.train.serve` (``BatchedServer``: prefill and
+  continuous-batching decode) over :mod:`repro_torch.models`, with flash
+  attention, flash decode and the RG-LRU scan in CUDA; its command line is
+  ``python -m repro_torch.launch.serve``.
+
+Device entry points run on ``"cuda"`` unless told ``"cpu"``
+(:mod:`repro_torch.device`).  The package imports ``torch``, numpy and
+scipy only.
 """
 from __future__ import annotations
 

@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import ops
 from .alloc_kernels import CSRIncidence
 
@@ -59,19 +60,6 @@ __all__ = [
     "TorchBatchedAllocator",
     "LockstepDispatcher",
 ]
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for an entry point's ``device`` argument; raises
-    when CUDA is asked for and missing (no silent CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the plain "
-                "PyTorch versions of the kernels")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
-    return dev
 
 
 def csr_from_arrays(n_nodes: int, width: int, indptr, indices,

@@ -68,7 +68,7 @@ def alloc_matvec_cuda(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check(weight, x)
     B, N, W = weight.shape
     out = torch.empty((B, N), dtype=torch.float64, device=weight.device)
-    lib = cuda_lib.load_library()
+    lib = cuda_lib.load_library("alloc")
     stream = torch.cuda.current_stream(weight.device).cuda_stream
     rc = lib.repro_alloc_matvec_f64(weight.data_ptr(), x.data_ptr(),
                                     out.data_ptr(), B, N, W, stream)

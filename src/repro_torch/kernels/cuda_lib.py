@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels (``csrc/alloc.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The source has a plain C interface.  At first use it is compiled with
-``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/repro_torch/`` at the root of the checkout, named by a hash of the
-source and the flags, and loaded with ``ctypes``; a later process with the
-same source loads the cached library.  Nothing here runs at import time,
-so the package imports on machines with no CUDA toolkit.
+Each source has a plain C interface and is built into its own library,
+with its own flags.  At first use it is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library under ``build/repro_torch/`` at the root
+of the checkout, named by a hash of the source and the flags, and loaded
+with ``ctypes``; a later process with the same source loads the cached
+library.  :func:`load_all` starts one ``nvcc`` per source, all together.
+Nothing here runs at import time, so the package imports on machines with
+no CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -16,29 +18,45 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
-__all__ = ["load_library", "build_info", "SOURCE"]
+__all__ = ["load_library", "load_all", "build_info", "LIBRARIES"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "alloc.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 
-#: --fmad=false keeps every multiply and add separately rounded (the
-#: bit-identity contract); -Xptxas -v records registers and spills in the
-#: build log
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+# -Xptxas -v records registers and spills in the build log
+_COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "repro_alloc_matvec_f64": [_P, _P, _P, _I, _I, _I, _P],
-    "repro_maxmin_round_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+_F = ctypes.c_float
+
+#: name -> (source, nvcc flags, {C function: argtypes})
+LIBRARIES = {
+    # --fmad=false keeps every multiply and add separately rounded (the
+    # allocation path's bit-identity contract)
+    "alloc": (_CSRC / "alloc.cu",
+              _COMMON[:3] + ("--fmad=false",) + _COMMON[3:], {
+        "repro_alloc_matvec_f64": [_P, _P, _P, _I, _I, _I, _P],
+        "repro_maxmin_round_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _P],
+    }),
+    "attention": (_CSRC / "attention.cu", _COMMON, {
+        "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _F, _P],
+        "repro_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _F, _P],
+    }),
+    "rglru": (_CSRC / "rglru.cu", _COMMON, {
+        "repro_rglru_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    }),
 }
 
 _lock = threading.Lock()
-_loaded: Dict[str, object] = {}
+_loaded: Dict[str, Dict[str, object]] = {}
 
 
 def _build_dir() -> Path:
@@ -58,48 +76,62 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def _build() -> Dict[str, object]:
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _build(name: str) -> Dict[str, object]:
+    source, flags, signatures = LIBRARIES[name]
+    src = source.read_bytes()
+    key = hashlib.sha256(src + "\0".join(flags).encode()).hexdigest()[:16]
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"alloc-{key}.so"
-    log_path = out_dir / f"alloc-{key}.log"
+    lib_path = out_dir / f"{name}-{key}.so"
+    log_path = out_dir / f"{name}-{key}.log"
     t0 = time.perf_counter()
     cached = lib_path.exists()
     if not cached:
-        tmp = out_dir / f".alloc-{key}.{os.getpid()}.so"
+        tmp = out_dir / f".{name}-{key}.{os.getpid()}.so"
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *flags, "-o", str(tmp), str(source)],
             capture_output=True, text=True)
         log_path.write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc failed on {source.name} "
+                               f"({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib_path)        # atomic against concurrent builds
     lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return {"lib": lib, "path": str(lib_path), "cached": cached,
+    return {"lib": lib, "source": str(source), "path": str(lib_path),
+            "flags": list(flags), "cached": cached,
             "build_s": time.perf_counter() - t0,
             "log": log_path.read_text() if log_path.exists() else ""}
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (a key of :data:`LIBRARIES`),
+    built on first call."""
     with _lock:
-        if "lib" not in _loaded:
-            _loaded.update(_build())
-        return _loaded["lib"]
+        if name not in _loaded:
+            _loaded[name] = _build(name)
+        return _loaded[name]["lib"]
 
 
-def build_info() -> Optional[Dict[str, object]]:
-    """Path, build seconds, cache hit and the compiler log of the loaded
-    library (None before the first :func:`load_library`)."""
+def load_all() -> None:
+    """Build every library not yet loaded, one ``nvcc`` per source, all
+    started together; raises the first build error."""
     with _lock:
-        if "lib" not in _loaded:
-            return None
-        return {k: v for k, v in _loaded.items() if k != "lib"}
+        todo = [n for n in LIBRARIES if n not in _loaded]
+        with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+            built = dict(zip(todo, pool.map(_build, todo)))
+        _loaded.update(built)
+
+
+def build_info() -> Dict[str, Dict[str, object]]:
+    """Per loaded library: source, path, flags, build seconds, cache hit and
+    the compiler log (libraries not loaded yet are absent)."""
+    with _lock:
+        return {name: {k: v for k, v in info.items() if k != "lib"}
+                for name, info in _loaded.items()}
+

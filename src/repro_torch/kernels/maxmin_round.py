@@ -119,7 +119,7 @@ def maxmin_round_cuda(
     B, N, W = present.shape
     y_out = torch.empty((B, W), dtype=torch.float64, device=y.device)
     frozen_out = torch.empty((B, W), dtype=torch.bool, device=y.device)
-    lib = cuda_lib.load_library()
+    lib = cuda_lib.load_library("alloc")
     stream = torch.cuda.current_stream(y.device).cuda_stream
     rc = lib.repro_maxmin_round_f64(
         f_use.data_ptr(), u_need.data_ptr(), present.data_ptr(),

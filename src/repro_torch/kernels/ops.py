@@ -1,4 +1,5 @@
-"""Kernel entry points of the allocation path, dispatched by device.
+"""Kernel entry points of the allocation and serving paths, dispatched by
+device.
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor launches the Hopper kernel, or the call raises.  There is no
@@ -11,17 +12,23 @@ counted), so a run can show that its main path went through the kernels;
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .alloc_matvec import alloc_matvec_cuda, alloc_matvec_plain
+from .flash_attention import (flash_attention_cuda, flash_attention_plain,
+                              flash_decode_cuda, flash_decode_plain)
 from .maxmin_round import maxmin_round_cuda, maxmin_round_plain
+from .rglru_scan import linear_recurrence_plain, rglru_scan_cuda
 
-__all__ = ["alloc_matvec", "maxmin_round", "launches", "reset_launches"]
+__all__ = ["alloc_matvec", "maxmin_round", "flash_attention", "flash_decode",
+           "linear_recurrence", "launches", "reset_launches"]
 
 #: kernel launches per entry point since the last reset
-launches: Dict[str, int] = {"alloc_matvec": 0, "maxmin_round": 0}
+launches: Dict[str, int] = {"alloc_matvec": 0, "maxmin_round": 0,
+                            "flash_attention": 0, "flash_decode": 0,
+                            "rglru_scan": 0}
 
 
 def reset_launches() -> None:
@@ -62,3 +69,37 @@ def maxmin_round(
         launches["maxmin_round"] += 1
         return out
     return maxmin_round_plain(f_use, u_need, present, frozen, y, live)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, scale: Optional[float] = None):
+    """GQA attention of a prompt (see ``kernels/flash_attention.py``)."""
+    if _on_cuda(q):
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)
+        launches["flash_attention"] += 1
+        return out
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, scale=scale)
+
+
+def flash_decode(q, k_cache, v_cache, cur_len, *,
+                 scale: Optional[float] = None):
+    """One new token per request against a KV cache (see
+    ``kernels/flash_attention.py``)."""
+    if _on_cuda(q):
+        out = flash_decode_cuda(q, k_cache, v_cache, cur_len, scale=scale)
+        launches["flash_decode"] += 1
+        return out
+    return flash_decode_plain(q, k_cache, v_cache, cur_len, scale=scale)
+
+
+def linear_recurrence(a, b, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU recurrence (see ``kernels/rglru_scan.py``).  Unlike the
+    reference, which sends ``T == 1`` to its oracle, the card launches the
+    kernel for every T, decode's single step included."""
+    if _on_cuda(a):
+        out = rglru_scan_cuda(a, b, h0)
+        launches["rglru_scan"] += 1
+        return out
+    return linear_recurrence_plain(a, b, h0)

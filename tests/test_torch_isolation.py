@@ -14,7 +14,12 @@ from repro_torch import api
 from repro_torch.core.alloc_torch import (TorchAllocBackend,
                                           TorchBatchedAllocator,
                                           resolve_device)
+from repro_torch.configs import get_reduced
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.models import backbone, blocks
+from repro_torch.models.layers import mlp_init, uinit
 from repro_torch.sched.sweep import grid, run_batched
+from repro_torch.train.serve import BatchedServer, ServeConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -44,6 +49,11 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.alloc_torch" in out["modules"]
     assert "repro_torch.kernels.ops" in out["modules"]
+    for mod in ("device", "models.config", "models.layers", "models.blocks",
+                "models.backbone", "models.convert", "configs",
+                "configs.recurrentgemma_2b", "kernels.flash_attention",
+                "kernels.rglru_scan", "train.serve", "launch.serve"):
+        assert f"repro_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
 
@@ -68,6 +78,46 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         api.simulate(w, "GreedyP */OPT=MIN")
     with pytest.raises(RuntimeError, match="CUDA"):
         run_batched(grid([w], ["GreedyP */OPT=MIN"]))
+
+
+def test_serving_entry_points_default_to_cuda_and_raise_without_it():
+    _need_no_cuda()
+    cfg = get_reduced("recurrentgemma-2b")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backbone.init_params(cfg, gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        backbone.init_cache(cfg, 1, 8)
+    params = backbone.init_params(cfg, gen, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedServer(cfg, params, ServeConfig(slots=1, cache_len=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--arch", "recurrentgemma-2b", "--reduced"])
+
+
+def test_block_builders_take_the_device_from_the_caller():
+    """The per-layer builders have no default device: only the entry
+    points above choose one (the card)."""
+    cfg = get_reduced("recurrentgemma-2b")
+    gen = torch.Generator().manual_seed(0)
+    for build in (blocks.attn_init, blocks.rglru_init, blocks.mlp_block_init):
+        with pytest.raises(TypeError):
+            build(cfg, gen, torch.float32)
+        assert build(cfg, gen, torch.float32, "cpu")["ln"].device.type == "cpu"
+    for build in (blocks.attn_cache, blocks.rglru_cache):
+        with pytest.raises(TypeError):
+            build(cfg, 1, 8, torch.float32)
+    with pytest.raises(TypeError):
+        uinit(gen, (4, 4), None, torch.float32)
+    with pytest.raises(TypeError):
+        mlp_init(gen, 4, 8, "gelu_gated", torch.float32)
+
+
+def test_serving_launcher_runs_on_the_cpu_when_asked(capsys):
+    assert serve_main(["--arch", "recurrentgemma-2b", "--reduced",
+                       "--device", "cpu", "--requests", "3", "--slots", "2",
+                       "--cache-len", "32", "--max-new", "3"]) == 0
+    assert "[serve] 3/3 requests" in capsys.readouterr().out
 
 
 def test_cpu_device_is_explicit():
