@@ -26,28 +26,35 @@ fails ends the run with exit code 1:
                after; ``torch.profiler`` traces the card's activity over the
                run for the device's busy share; peak device memory is
                counted from the allocation at the phase's start;
-5. serve kernels — flash attention, flash decode and the RG-LRU scan
-               against their plain versions on the card, fp32 and bf16, at
-               RecurrentGemma-2B's shapes (a prompt of 2,100 tokens under
-               the 2,048 window), without a window, non-causal, at
-               Llama-3-8B's GQA widths, per-request decode lengths past the
-               cache, T = 1 and a long T (fp32 2e-5, bf16 2e-2, the RG-LRU
-               atol 1e-5 / rtol 1e-4: the reference's kernel tolerances);
-6. model check — RecurrentGemma-2B at full width, one super-block deep
-               (RG-LRU, RG-LRU, local attention), fp32, seeded weights:
-               prefill of 2,100 tokens and 8 decode steps on the card
-               (kernels) and on the host CPU (plain versions), logits
-               compared (atol = rtol = 2e-3) and greedy tokens counted;
-7. serve     — RecurrentGemma-2B at full width and depth (26 layers, bf16
-               weights and cache) through ``BatchedServer``: 4 slots,
-               cache 4096, 8 requests of 1,024-2,000 prompt tokens, 96 new
-               tokens each, so that decode wraps the 2,048 ring; every
-               request must finish with finite logits, and the launch
-               counts, zeroed just before and read just after, must show
-               every serving kernel; then the serve's last wave (its last
-               4 requests, the served prompts, three of which wrap the
-               ring) is replayed on a fresh server under ``torch.profiler``
-               for the card's busy share and kernel time by name;
+5. serve kernels — flash attention, flash decode, the RG-LRU scan and the
+               RWKV6 WKV recurrence against their plain versions on the
+               card, fp32 and bf16, at RecurrentGemma-2B's shapes (a prompt
+               of 2,100 tokens under the 2,048 window), without a window,
+               non-causal, at Llama-3-8B's GQA widths, per-request decode
+               lengths past the cache, T = 1 and a long T, and at
+               RWKV6-7B's (a decode step of 4 slots, a prefill of 2,000
+               tokens, a ragged dk != dv, decays down to 1e-3 over 2,000
+               steps, the state written in place) (fp32 2e-5, bf16 2e-2,
+               the RG-LRU atol 1e-5 / rtol 1e-4, the WKV atol = rtol =
+               1e-4: the reference's kernel tolerances);
+6. model check — per arch at full width, cut in depth, fp32, seeded
+               weights drawn on the host: RecurrentGemma-2B one super-block
+               deep (RG-LRU, RG-LRU, local attention), prefill of 2,100
+               tokens; RWKV6-7B 2 layers deep, prefill of 1,000 tokens;
+               then 8 decode steps, on the card (kernels) and on the host
+               CPU (plain versions), logits compared (atol = rtol = 2e-3)
+               and greedy tokens counted;
+7. serve     — per arch at full width and depth (bf16 weights and cache)
+               through ``BatchedServer``, 4 slots, cache 4096, 8 requests
+               of 1,024-2,000 prompt tokens: RecurrentGemma-2B (26 layers)
+               with 96 new tokens each, so that decode wraps the 2,048
+               ring; RWKV6-7B (32 layers) with 64; every request must
+               finish with finite logits, and the launch counts, zeroed
+               just before and read just after, must show every kernel of
+               the arch; then the serve's last wave (its last 4 requests,
+               the served prompts) is replayed on a fresh server under
+               ``torch.profiler`` for the card's busy share and kernel time
+               by name;
 8. kernels line — per kernel: launches on its path (phase 4 or 7), the
                largest difference from its plain version, device times
                (CUDA events around a CUDA graph of many launches) of the
@@ -88,7 +95,7 @@ _NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the round
 
 # the port's kernels, by the names the profiler gives them
 _PORT_KERNELS = ("alloc_matvec_kernel", "maxmin_round_kernel", "attn_kernel",
-                 "decode_combine_kernel", "rglru_scan_kernel")
+                 "decode_combine_kernel", "rglru_scan_kernel", "wkv6_kernel")
 
 _OUTCOMES = ("max_stretch", "mean_stretch", "makespan", "underutilization",
              "n_pmtn", "n_mig", "pmtn_per_job", "mig_per_job",
@@ -427,6 +434,17 @@ def device_busy(prof, wall_s):
             "top_kernels_s": dict(by_name.most_common(8))}
 
 
+def host_ops(torch, fn):
+    """Top-level ATen operators that one call of ``fn`` dispatches from the
+    host (each a launch, or more, when its tensors lie on the card)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))
+        for e in prof.events())
+
+
 def stop_device_trace(prof, trace_error, wall_s):
     """:func:`device_busy` of a trace from :func:`start_device_trace`, or
     why it was not measured."""
@@ -511,15 +529,26 @@ def phase_slice(torch, np):
 
 
 # --------------------------------------------------------------------------- #
-# the serving path (RecurrentGemma-2B)                                         #
+# the serving path (RecurrentGemma-2B, RWKV6-7B)                               #
 # --------------------------------------------------------------------------- #
-ARCH = "recurrentgemma-2b"
+RG, RWKV = "recurrentgemma-2b", "rwkv6-7b"
+# per arch: the kernels its path launches, the model check's depth, prompt
+# and weight seed, the serve's new tokens a request and its seed
+SERVE_ARCHS = {
+    RG: {"kernels": ("flash_attention", "flash_decode", "rglru_scan"),
+         "check_layers": 3, "check_prompt": 2100, "check_seed": 2402,
+         # three of seed 60's eight prompts decode past the 2,048 window
+         "max_new": 96, "seed": 60},
+    RWKV: {"kernels": ("wkv6",),
+           "check_layers": 2, "check_prompt": 1000, "check_seed": 2404,
+           "max_new": 64, "seed": 64},
+}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # the reference's kernel tests
 RGLRU_ATOL, RGLRU_RTOL = 1e-5, 1e-4
+WKV_TOL = 1e-4                                 # atol = rtol
 MODEL_TOL = 2e-3                               # the reference's model tests
-CHECK_PROMPT, CHECK_STEPS, CHECK_CACHE = 2100, 8, 4096
-SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 4096, 8, 96
-SERVE_SEED = 60          # three of its eight prompts decode past 2,048
+CHECK_STEPS, CHECK_CACHE = 8, 4096
+SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS = 4, 4096, 8
 
 
 def _dtype_name(torch, dt):
@@ -539,6 +568,35 @@ def _randn(torch, gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def wkv6_inputs(torch, gen, B, T, H, dk, dv, dtype, w_low):
+    """r, k, v (in ``dtype``), w in [w_low, 1), u and s0 as the model
+    feeds the WKV recurrence."""
+    def rand(shape, scale):
+        return _randn(torch, gen, shape, torch.float32) * scale
+    w = w_low + (1.0 - w_low) * torch.rand((B, T, H, dk), generator=gen,
+                                           device="cuda")
+    return (rand((B, T, H, dk), 0.5).to(dtype),
+            rand((B, T, H, dk), 0.5).to(dtype),
+            rand((B, T, H, dv), 0.5).to(dtype), w, rand((H, dk), 0.5),
+            rand((B, H, dk, dv), 0.1))
+
+
+def wkv6_bound(r, v):
+    """(bound ms, what bounds it) of one WKV call: r, k, v read in their
+    type, w, u and s0 in fp32, y and sT written in fp32.  The operations
+    are what the function needs at each step of each head: with the bonus
+    as one dot product, y_j = sum_i r_i s_ij + v_j sum_i r_i u_i k_i, 5
+    flops for each (row i, column j) pair (r s, w s, k v), 3 for each row
+    (r u k) and 2 for each column (v times the bonus, added to y_j)."""
+    B, T, H, dk = r.shape
+    dv = v.shape[-1]
+    n_bytes = (2 * r.numel() * r.element_size() + v.numel() * v.element_size()
+               + 4 * (r.numel() + H * dk + 2 * B * H * dk * dv
+                      + B * T * H * dv))
+    n_ops = B * T * H * (5 * dk * dv + 3 * dk + 2 * dv)
+    return bound_ms(n_bytes, n_ops, FP32_OPS_PER_S)
+
+
 def attention_pairs(Tq, Tk, causal, window, q_offset=0):
     """(row, key) pairs the masks keep: the work attention must do."""
     total = 0
@@ -556,6 +614,7 @@ def phase_serve_kernels(torch):
         flash_decode_plain)
     from repro_torch.kernels.rglru_scan import (linear_recurrence_plain,
                                                 rglru_scan_cuda)
+    from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
@@ -619,31 +678,60 @@ def phase_serve_kernels(torch):
                                          and torch.equal(hT, hTp)),
                        "ok": _within(torch, h, hp, RGLRU_ATOL, RGLRU_RTOL)
                        and _within(torch, hT, hTp, RGLRU_ATOL, RGLRU_RTOL)})
+    # (label, B, T, H, dk, dv, r/k/v dtype, lowest decay)
+    for label, B, T, H, dk, dv, dt, w_low in [
+            ("rwkv6_decode", 4, 1, 64, 64, 64, torch.bfloat16, 0.9),
+            ("rwkv6_prefill", 1, 2000, 64, 64, 64, torch.bfloat16, 0.9),
+            ("rwkv6_prefill", 1, 2000, 64, 64, 64, torch.float32, 0.9),
+            ("ragged", 2, 37, 3, 32, 48, torch.float32, 0.45),
+            ("strong_decay", 1, 2000, 64, 64, 64, torch.float32, 1e-3)]:
+        args = wkv6_inputs(torch, gen, B, T, H, dk, dv, dt, w_low)
+        y, sT = wkv6_cuda(*args)
+        yp, sTp = wkv6_plain(*args)
+        state = args[5].clone()              # a serving slot's state
+        y2, _ = wkv6_cuda(*args[:5], state, state_out=state)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(sT).all())
+        checks.append({"kernel": "wkv6", "case": label,
+                       "dtype": _dtype_name(torch, dt),
+                       "shape": [B, T, H, dk, dv], "lowest_decay": w_low,
+                       "max_abs_err": max(_err(y, yp), _err(sT, sTp)),
+                       "finite": finite,
+                       "in_place_equal": bool(torch.equal(y2, y)
+                                              and torch.equal(state, sT)),
+                       "ok": finite and y.dtype == torch.float32
+                       and _within(torch, y, yp, WKV_TOL, WKV_TOL)
+                       and _within(torch, sT, sTp, WKV_TOL, WKV_TOL)
+                       and bool(torch.equal(y2, y)
+                                and torch.equal(state, sT))})
     ok = all(c["ok"] for c in checks)
     emit({"phase": "serve kernels", "ok": ok,
           "tolerance": {"float32": TOL["float32"], "bfloat16": TOL["bfloat16"],
-                        "rglru_scan": [RGLRU_ATOL, RGLRU_RTOL]},
+                        "rglru_scan": [RGLRU_ATOL, RGLRU_RTOL],
+                        "wkv6": [WKV_TOL, WKV_TOL]},
           "checks": checks})
     if not ok:
         raise PhaseFailed("a serving kernel disagrees with its plain version")
 
 
-def phase_model_check(torch, np):
+def phase_model_check(torch, np, arch):
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import backbone
 
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=3)
+    spec = SERVE_ARCHS[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=spec["check_layers"])
+    n_prompt = spec["check_prompt"]
     gen = torch.Generator()                     # weights drawn on the host
-    gen.manual_seed(2402)
+    gen.manual_seed(spec["check_seed"])
     t0 = time.perf_counter()
     host = backbone.init_params(cfg, gen, dtype=torch.float32, device="cpu")
     card = _tree_map(lambda t: t.to("cuda"), host)
     init_s = time.perf_counter() - t0
-    prompt = torch.as_tensor(np.random.default_rng(2402).integers(
-        1, cfg.vocab, size=(1, CHECK_PROMPT)))
+    prompt = torch.as_tensor(np.random.default_rng(spec["check_seed"])
+                             .integers(1, cfg.vocab, size=(1, n_prompt)))
 
     def run(params, device, feed=None):
         """Prefill, then decode the tokens of ``feed`` (when None, the run's
@@ -659,15 +747,14 @@ def phase_model_check(torch, np):
             tok = feed[i] if feed is not None else torch.argmax(out[-1], -1)
             fed.append(tok)
             logits, caches = backbone.decode_step(
-                cfg, params, tok.to(device), caches, CHECK_PROMPT + i)
+                cfg, params, tok.to(device), caches, n_prompt + i)
             out.append(logits.float().cpu())
         return out, fed, time.perf_counter() - t
 
     host_logits, feed, host_s = run(host, "cpu")
     ops.reset_launches()
     card_logits, _, card_s = run(card, "cuda", feed)
-    launches = {k: ops.launches[k] for k in
-                ("flash_attention", "flash_decode", "rglru_scan")}
+    launches = {k: ops.launches[k] for k in spec["kernels"]}
     diffs = [float((c - h).abs().max())
              for c, h in zip(card_logits, host_logits)]
     within = all(bool(((c - h).abs() <= MODEL_TOL + MODEL_TOL * h.abs()).all())
@@ -676,9 +763,9 @@ def phase_model_check(torch, np):
                 for c, h in zip(card_logits, host_logits))
     finite = all(bool(torch.isfinite(c).all()) for c in card_logits)
     ok = within and finite and all(v > 0 for v in launches.values())
-    emit({"phase": "model check", "ok": ok, "arch": ARCH,
+    emit({"phase": "model check", "ok": ok, "arch": arch,
           "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": "float32",
-          "prompt": CHECK_PROMPT, "decode_steps": CHECK_STEPS,
+          "prompt": n_prompt, "decode_steps": CHECK_STEPS,
           "cache_len": CHECK_CACHE, "window": cfg.window,
           "tolerance": {"atol": MODEL_TOL, "rtol": MODEL_TOL},
           "max_abs_logit_diff": diffs, "greedy_agree": agree,
@@ -703,7 +790,7 @@ def _leaves(tree):
     return out
 
 
-def phase_serve(torch, np):
+def phase_serve(torch, np, arch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import backbone
@@ -740,10 +827,12 @@ def phase_serve(torch, np):
             self.decode_steps += 1
             return logits, caches
 
-    cfg = get_config(ARCH)
+    spec = SERVE_ARCHS[arch]
+    seed, max_new = spec["seed"], spec["max_new"]
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(SERVE_SEED)
+    gen.manual_seed(seed)
     t0 = time.perf_counter()
     params = backbone.init_params(cfg, gen, dtype=torch.bfloat16,
                                   device="cuda")
@@ -751,12 +840,11 @@ def phase_serve(torch, np):
     init_s = time.perf_counter() - t0
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     srv = TimedServer(cfg, params, ServeConfig(
-        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, seed=SERVE_SEED),
-        device="cuda")
-    rng = np.random.default_rng(SERVE_SEED)
+        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, seed=seed), device="cuda")
+    rng = np.random.default_rng(seed)
     lens = rng.integers(1024, 2001, SERVE_REQUESTS)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
-                    max_new=SERVE_MAX_NEW) for i, n in enumerate(lens)]
+                    max_new=max_new) for i, n in enumerate(lens)]
     for r in reqs:
         srv.submit(r)
     ops.reset_launches()
@@ -769,20 +857,19 @@ def phase_serve(torch, np):
             raise PhaseFailed("the serve loop did not drain")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: ops.launches[k] for k in
-                ("flash_attention", "flash_decode", "rglru_scan")}
+    launches = {k: ops.launches[k] for k in spec["kernels"]}
     peak = torch.cuda.max_memory_allocated()
     last_pos = [len(r.prompt) + len(r.out) - 2 for r in reqs]
-    wrapped = sum(p >= cfg.window for p in last_pos)
-    finished = all(r.done and len(r.out) == SERVE_MAX_NEW for r in reqs)
+    # the ring must wrap where the arch has a window
+    wrapped = sum(p >= cfg.window for p in last_pos) if cfg.window else None
+    finished = all(r.done and len(r.out) == max_new for r in reqs)
 
     # The serve's last wave (its last SERVE_SLOTS requests: the served
-    # prompts and lengths, the ring wrapping) replayed on a fresh server
-    # under the profiler, for the card's busy share and kernel time by
-    # name; every other number here comes from the untraced run above.
+    # prompts and lengths) replayed on a fresh server under the profiler,
+    # for the card's busy share and kernel time by name; every other number
+    # here comes from the untraced run above.
     tsrv = TimedServer(cfg, params, ServeConfig(
-        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, seed=SERVE_SEED),
-        device="cuda")
+        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, seed=seed), device="cuda")
     for r in reqs[-SERVE_SLOTS:]:
         tsrv.submit(Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new))
     torch.cuda.synchronize()
@@ -798,14 +885,21 @@ def phase_serve(torch, np):
                   "decode_s": tsrv.decode_s,
                   "decode_steps": tsrv.decode_steps})
     del prof, tsrv
-    ok = (finished and srv.finite and wrapped > 0
+    # the eager dispatch of one decode step over the drained slots (the
+    # untimed step of the plain server, so the timings above stay as run)
+    step_ops = host_ops(torch, lambda: BatchedServer._decode_impl(
+        srv, torch.zeros(SERVE_SLOTS, dtype=torch.int64, device="cuda"),
+        srv.caches, torch.full((SERVE_SLOTS,), SERVE_CACHE // 2,
+                               device="cuda")))
+    ok = (finished and srv.finite and wrapped != 0
           and all(v > 0 for v in launches.values()))
-    emit({"phase": "serve", "ok": ok, "arch": ARCH,
+    emit({"phase": "serve", "ok": ok, "arch": arch,
           "layers": cfg.n_layers, "params": sum(
               t.numel() for t in _leaves(params)),
+          "param_count": cfg.param_count(),
           "dtype": "bfloat16", "cache_dtype": "bfloat16",
           "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
-          "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
+          "requests": SERVE_REQUESTS, "max_new": max_new, "seed": seed,
           "prompt_lens": lens.tolist(), "requests_past_window": wrapped,
           "all_finished": finished, "logits_finite": srv.finite,
           "wall_s": wall, "steps": steps, "decode_tokens": decode_tokens,
@@ -814,6 +908,8 @@ def phase_serve(torch, np):
           "decode_steps": srv.decode_steps, "decode_s": srv.decode_s,
           "decode_tokens_per_s": decode_tokens / srv.decode_s,
           "ms_per_decode_step": srv.decode_s / srv.decode_steps * 1e3,
+          "host_ops_per_decode_step": step_ops,
+          "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
           "init_s": init_s, "weight_bytes": weight_bytes,
           "max_memory_allocated_bytes": peak, "launches": launches,
           "first_outputs": [r.out[:8] for r in reqs[:2]],
@@ -821,7 +917,7 @@ def phase_serve(torch, np):
     if not ok:
         raise PhaseFailed("a request did not finish, a logit was not "
                           "finite, no request wrapped the window, or a "
-                          "serving kernel was not launched")
+                          f"kernel of {arch} was not launched")
     del srv, params
     torch.cuda.empty_cache()
     return launches, lens
@@ -842,7 +938,7 @@ def serve_kernel_entries(torch, np, launches, prompt_lens):
     from repro_torch.kernels.rglru_scan import (linear_recurrence_plain,
                                                 rglru_scan_cuda)
 
-    cfg = get_config(ARCH)
+    cfg = get_config(RG)
     H, Hkv, hd, W, win = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                           cfg.lru_width, cfg.window)
     bf = torch.bfloat16
@@ -895,7 +991,8 @@ def serve_kernel_entries(torch, np, launches, prompt_lens):
     # ---- flash decode: the four slots at mid-run positions ----------------
     S = min(SERVE_CACHE, win)
     B = SERVE_SLOTS
-    lens_list = [int(n) + SERVE_MAX_NEW // 2 for n in prompt_lens[:B]]
+    lens_list = [int(n) + SERVE_ARCHS[RG]["max_new"] // 2
+                 for n in prompt_lens[:B]]
     lens = torch.tensor(lens_list, device="cuda")
     q = _randn(torch, gen, (B, H, hd), bf)
     kc = _randn(torch, gen, (B, S, Hkv, hd), bf)
@@ -979,6 +1076,52 @@ def serve_kernel_entries(torch, np, launches, prompt_lens):
     ok = all(e["launches"] > 0 and e["max_abs_err"] <= tol[e["name"]]
              for e in entries)
     return entries, ok
+
+
+def wkv6_entry(torch, np, launches, prompt_lens):
+    """The kernels line's entry of the WKV recurrence at the RWKV6-7B
+    decode step (4 slots, T = 1, bf16 r/k/v), which launches it most, with
+    the prefill of the median served prompt beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
+
+    cfg = get_config(RWKV)
+    H, dk = cfg.n_heads, cfg.rwkv_head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    L = int(np.median(prompt_lens))
+    dec = wkv6_inputs(torch, gen, SERVE_SLOTS, 1, H, dk, dk, torch.bfloat16,
+                      0.9)
+    pre = wkv6_inputs(torch, gen, 1, L, H, dk, dk, torch.bfloat16, 0.9)
+    errs = []
+    for args in (dec, pre):
+        y, sT = wkv6_cuda(*args)
+        yp, sTp = wkv6_plain(*args)
+        errs += [_err(y, yp), _err(sT, sTp)]
+    dec_bound, dec_by = wkv6_bound(dec[0], dec[2])
+    pre_bound, pre_by = wkv6_bound(pre[0], pre[2])
+    entry = {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "wrapper": "src/repro_torch/kernels/rwkv6_scan.py",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:77",
+        "launches": launches["wkv6"],
+        "shape": [SERVE_SLOTS, 1, H, dk, dk], "dtype": "bfloat16",
+        "max_abs_err": max(errs),
+        "ms": device_ms(torch, lambda: wkv6_cuda(*dec), 200),
+        "eager_ms": eager_ms(torch, lambda: wkv6_cuda(*dec), 200),
+        "plain_ms": device_ms(torch, lambda: wkv6_plain(*dec), 200),
+        "library": None, "library_ms": None,
+        "bound_ms": dec_bound, "bound_by": dec_by,
+        "bound_rate": "HBM 3.35 TB/s; FP32 67 TFLOP/s, 5 flops a (row, "
+                      "column) pair, 3 a row and 2 a column, a step",
+        "prefill": {"shape": [1, L, H, dk, dk],
+                    "ms": device_ms(torch, lambda: wkv6_cuda(*pre), 20),
+                    "plain_ms": device_ms(torch, lambda: wkv6_plain(*pre),
+                                          1),
+                    "bound_ms": pre_bound, "bound_by": pre_by},
+    }
+    return entry, entry["launches"] > 0 and entry["max_abs_err"] <= WKV_TOL
 
 
 def phase_kernel_line(torch, np, launches, stats):
@@ -1084,17 +1227,21 @@ def main() -> int:
         launches, stats = phase_slice(torch, np)
         phase = "serve kernels"
         phase_serve_kernels(torch)
-        phase = "model check"
-        phase_model_check(torch, np)
-        phase = "serve"
-        serve_launches, prompt_lens = phase_serve(torch, np)
+        for arch in SERVE_ARCHS:
+            phase = f"model check {arch}"
+            phase_model_check(torch, np, arch)
+        served = {}
+        for arch in SERVE_ARCHS:
+            phase = f"serve {arch}"
+            served[arch] = phase_serve(torch, np, arch)
         phase = "kernels line"
         alloc_entries, alloc_ok = phase_kernel_line(torch, np, launches,
                                                     stats)
-        serve_entries, serve_ok = serve_kernel_entries(
-            torch, np, serve_launches, prompt_lens)
-        line, ok = {"kernels": alloc_entries + serve_entries}, (
-            alloc_ok and serve_ok)
+        serve_entries, serve_ok = serve_kernel_entries(torch, np,
+                                                       *served[RG])
+        wkv, wkv_ok = wkv6_entry(torch, np, *served[RWKV])
+        line = {"kernels": alloc_entries + serve_entries + [wkv]}
+        ok = alloc_ok and serve_ok and wkv_ok
     except Exception as exc:  # noqa: BLE001 — reported, then a failing exit
         traceback.print_exc()
         emit({"phase": phase, "ok": False,

@@ -7,11 +7,11 @@ Hopper kernels:
   engine, with the §4.6 OPT=MIN / OPT=AVG reallocations batched onto the
   device and the water-filling in CUDA; its public surface is
   :mod:`repro_torch.api`;
-* the model substrate's serving path for RecurrentGemma-2B —
+* the model substrate's serving path for RecurrentGemma-2B and RWKV6-7B —
   :mod:`repro_torch.train.serve` (``BatchedServer``: prefill and
   continuous-batching decode) over :mod:`repro_torch.models`, with flash
-  attention, flash decode and the RG-LRU scan in CUDA; its command line is
-  ``python -m repro_torch.launch.serve``.
+  attention, flash decode, the RG-LRU scan and the RWKV6 WKV recurrence in
+  CUDA; its command line is ``python -m repro_torch.launch.serve``.
 
 Device entry points run on ``"cuda"`` unless told ``"cpu"``
 (:mod:`repro_torch.device`).  The package imports ``torch``, numpy and

@@ -16,6 +16,7 @@ __all__ = ["ARCHS", "ALIASES", "get_config", "get_reduced"]
 
 ARCHS: Tuple[str, ...] = (
     "recurrentgemma_2b",
+    "rwkv6_7b",
 )
 
 # canonical dashed ids (CLI) -> module names

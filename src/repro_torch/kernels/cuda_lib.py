@@ -53,6 +53,10 @@ LIBRARIES = {
     "rglru": (_CSRC / "rglru.cu", _COMMON, {
         "repro_rglru_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     }),
+    "wkv6": (_CSRC / "wkv6.cu", _COMMON, {
+        "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _P],
+    }),
 }
 
 _lock = threading.Lock()

@@ -21,14 +21,15 @@ from .flash_attention import (flash_attention_cuda, flash_attention_plain,
                               flash_decode_cuda, flash_decode_plain)
 from .maxmin_round import maxmin_round_cuda, maxmin_round_plain
 from .rglru_scan import linear_recurrence_plain, rglru_scan_cuda
+from .rwkv6_scan import wkv6_cuda, wkv6_plain
 
 __all__ = ["alloc_matvec", "maxmin_round", "flash_attention", "flash_decode",
-           "linear_recurrence", "launches", "reset_launches"]
+           "linear_recurrence", "wkv6", "launches", "reset_launches"]
 
 #: kernel launches per entry point since the last reset
 launches: Dict[str, int] = {"alloc_matvec": 0, "maxmin_round": 0,
                             "flash_attention": 0, "flash_decode": 0,
-                            "rglru_scan": 0}
+                            "rglru_scan": 0, "wkv6": 0}
 
 
 def reset_launches() -> None:
@@ -103,3 +104,16 @@ def linear_recurrence(a, b, h0) -> Tuple[torch.Tensor, torch.Tensor]:
         launches["rglru_scan"] += 1
         return out
     return linear_recurrence_plain(a, b, h0)
+
+
+def wkv6(r, k, v, w, u, s0, *, state_out: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV6 WKV recurrence (see ``kernels/rwkv6_scan.py``); sT goes
+    to ``state_out`` when given (it may be ``s0``).  Unlike the reference,
+    which sends ``T == 1`` to its oracle, the card launches the kernel for
+    every T, decode's single step included."""
+    if _on_cuda(r):
+        out = wkv6_cuda(r, k, v, w, u, s0, state_out=state_out)
+        launches["wkv6"] += 1
+        return out
+    return wkv6_plain(r, k, v, w, u, s0, state_out=state_out)

@@ -1,5 +1,5 @@
 """The model substrate's serving path, ported: ``config`` (every family's
-``ModelConfig``), ``layers`` and ``blocks`` (attention, RG-LRU, MLP),
+``ModelConfig``), ``layers`` and ``blocks`` (attention, RWKV6, RG-LRU, MLP),
 ``backbone`` (init, the layer loop, prefill, decode) and ``convert`` (the
 reference's parameters carried across).  Per-arch configs live in
 ``repro_torch.configs``."""

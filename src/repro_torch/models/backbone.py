@@ -18,8 +18,8 @@ import torch
 
 from ..device import resolve_device
 from . import blocks
-from .config import (ATTN, LOCAL_ATTN, MOE, RGLRU, BlockSpec, ModelConfig,
-                     layer_plan)
+from .config import (ATTN, LOCAL_ATTN, MOE, RGLRU, RWKV6, BlockSpec,
+                     ModelConfig, layer_plan)
 from .layers import norm, uinit
 
 __all__ = ["init_params", "init_cache", "slot_view", "forward",
@@ -43,6 +43,8 @@ def _check_served(cfg: ModelConfig) -> None:
 def _layer_init(cfg: ModelConfig, spec: BlockSpec, gen, dtype, device):
     if spec.kind in (ATTN, LOCAL_ATTN):
         mix = blocks.attn_init(cfg, gen, dtype, device)
+    elif spec.kind == RWKV6:      # owns its channel mix: no MLP entry
+        return {"mix": blocks.rwkv6_init(cfg, gen, dtype, device)}
     elif spec.kind == RGLRU:
         mix = blocks.rglru_init(cfg, gen, dtype, device)
     else:
@@ -77,7 +79,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16,
                device="cuda") -> List[Dict[str, Dict[str, torch.Tensor]]]:
     """Decode caches, one ``{"mix": ...}`` dict per layer in plan order.
-    bf16 by default, as the reference; the RG-LRU state ``h`` stays fp32.
+    bf16 by default, as the reference; the RG-LRU state ``h`` and the RWKV6
+    state ``s`` stay fp32.
     A local-attention layer's cache is its window, ``min(S, window)``."""
     device = resolve_device(device)
     _check_served(cfg)
@@ -87,6 +90,8 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16,
             mix = blocks.attn_cache(cfg, B, S, dtype, device)
         elif spec.kind == LOCAL_ATTN:
             mix = blocks.attn_cache(cfg, B, min(S, cfg.window), dtype, device)
+        elif spec.kind == RWKV6:
+            mix = blocks.rwkv6_cache(cfg, B, S, dtype, device)
         elif spec.kind == RGLRU:
             mix = blocks.rglru_cache(cfg, B, S, dtype, device)
         else:
@@ -112,6 +117,9 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, h, mode, cache, pos):
     elif spec.kind == LOCAL_ATTN:
         h, _ = blocks.attn_apply(cfg, p["mix"], h, mode, cache, pos,
                                  window=cfg.window)
+    elif spec.kind == RWKV6:      # owns its channel mix
+        h, _ = blocks.rwkv6_apply(cfg, p["mix"], h, mode, cache, pos)
+        return h
     elif spec.kind == RGLRU:
         h, _ = blocks.rglru_apply(cfg, p["mix"], h, mode, cache, pos)
     else:

@@ -16,9 +16,10 @@ filled.
 
 ``<kind>_cache(cfg, B, S, dtype, device)`` — zeroed per-layer cache dict.
 
-Ported: softmax attention (full and sliding-window), the RG-LRU recurrent
-block and the dense MLP block.  MLA, RWKV6, cross-attention and MoE come
-with later slices (``ROADMAP.md``) and raise ``NotImplementedError``.
+Ported: softmax attention (full and sliding-window), RWKV6 (time mix and
+channel mix), the RG-LRU recurrent block and the dense MLP block.  MLA,
+cross-attention and MoE come with later slices (``ROADMAP.md``) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,18 +29,18 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from .config import MLA, MOE, RWKV6, ModelConfig
+from .config import MLA, MOE, ModelConfig
 from .layers import mlp_apply, mlp_init, norm, rope, uinit
 
 __all__ = [
     "attn_init", "attn_cache", "attn_apply",
+    "rwkv6_init", "rwkv6_cache", "rwkv6_apply",
     "rglru_init", "rglru_cache", "rglru_apply",
     "mlp_block_init", "mlp_block_apply", "not_ported",
 ]
 
 _LATER = {
     MLA: "MLA (DeepSeek) blocks come with the other families' slice",
-    RWKV6: "RWKV6 blocks come with the next slice (RWKV6-7B serving, wkv6)",
     MOE: "MoE MLPs come with the other families' slice",
     "cross": "cross-attention (Whisper) comes with the other families' slice",
     "int8": "the int8 KV-cache layout comes with a later slice",
@@ -131,6 +132,111 @@ def attn_apply(cfg: ModelConfig, p, x, mode: str, cache, pos, *,
             else:
                 buf[:, :T] = val
     return x + y, cache
+
+
+# =========================================================================== #
+# RWKV6 (Finch) — time-mix + channel-mix                                       #
+# =========================================================================== #
+_LORA_R = 32
+_DECAY_R = 64
+
+
+def rwkv6_init(cfg: ModelConfig, gen, dtype, device):
+    D, F_, H, dk = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.rwkv_head_dim
+
+    def u(shape, scale=None):
+        return uinit(gen, shape, scale, dtype, device)
+    return {
+        "ln_t": _zeros((D,), dtype, device),
+        "mu_x": _zeros((D,), dtype, device),          # ddlerp base mix
+        "mu": _zeros((5, D), dtype, device),          # per-target (w,k,v,r,g)
+        "lora_a": u((D, 5 * _LORA_R)),
+        "lora_b": u((5, _LORA_R, D), 0.01),
+        "w0": torch.full((D,), -3.0, dtype=dtype, device=device),
+        "wa": u((D, _DECAY_R)),
+        "wb": u((_DECAY_R, D), 0.01),
+        "u": u((H, dk), 0.5),                         # bonus
+        "wr": u((D, D)), "wk": u((D, D)), "wv": u((D, D)), "wg": u((D, D)),
+        "wo": u((D, D)),
+        "gn": _zeros((H, dk), dtype, device),         # per-head groupnorm
+        # channel mix
+        "ln_c": _zeros((D,), dtype, device),
+        "cmu_k": _zeros((D,), dtype, device),
+        "cmu_r": _zeros((D,), dtype, device),
+        "cwk": u((D, F_)), "cwv": u((F_, D)), "cwr": u((D, D)),
+    }
+
+
+def rwkv6_cache(cfg: ModelConfig, B: int, S: int, dtype, device):
+    """The token-shift inputs in the cache dtype and the WKV state in fp32,
+    as the reference; S is unused (the state does not grow)."""
+    H, dk = cfg.n_heads, cfg.rwkv_head_dim
+    return {"x_tm": _zeros((B, cfg.d_model), dtype, device),
+            "x_cm": _zeros((B, cfg.d_model), dtype, device),
+            "s": _zeros((B, H, dk, dk), torch.float32, device)}
+
+
+def _token_shift(x, x_prev):
+    """x: (B, T, D); x_prev: (B, D), the last token of the previous
+    segment."""
+    return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
+
+
+def _headify(x, H, d):
+    B, T = x.shape[:2]
+    return x.reshape(B, T, H, d)
+
+
+def rwkv6_apply(cfg: ModelConfig, p, x, mode: str, cache, pos):
+    B, T, D = x.shape
+    H, dk = cfg.n_heads, cfg.rwkv_head_dim
+    dtype = x.dtype
+    if cache is not None:
+        x_tm_prev = cache["x_tm"].to(dtype)
+        x_cm_prev = cache["x_cm"].to(dtype)
+        s0 = cache["s"]
+    else:
+        x_tm_prev = x_cm_prev = _zeros((B, D), dtype, x.device)
+        s0 = _zeros((B, H, dk, dk), torch.float32, x.device)
+    writes = cache is not None and mode in ("prefill", "decode")
+
+    # ---- time mix ----------------------------------------------------------
+    h = norm(x, p["ln_t"], cfg.norm_kind, cfg.norm_eps)
+    dx = _token_shift(h, x_tm_prev) - h
+    xxx = h + dx * p["mu_x"]
+    mix = torch.tanh(xxx @ p["lora_a"]).reshape(B, T, 5, _LORA_R)
+    mix = torch.einsum("btfr,frd->btfd", mix, p["lora_b"])
+    tgt = h[:, :, None] + dx[:, :, None] * (p["mu"][None, None] + mix)
+    x_w, x_k, x_v, x_r, x_g = tgt.unbind(2)                  # (B, T, D) each
+    w_log = p["w0"] + torch.tanh(x_w @ p["wa"]) @ p["wb"]
+    w = torch.exp(-torch.exp(w_log.float()))                  # decay in (0,1)
+    r = _headify(x_r @ p["wr"], H, dk)
+    k = _headify(x_k @ p["wk"], H, dk)
+    v = _headify(x_v @ p["wv"], H, dk)
+    g = F.silu(x_g @ p["wg"])
+    w = _headify(w, H, dk)
+
+    # the kernel writes sT straight into the cache's state (a slot view)
+    y, _ = kops.wkv6(r, k, v, w, p["u"], s0,
+                     state_out=cache["s"] if writes else None)
+    # per-head group norm (population variance, as jnp.var)
+    mu_ = y.mean(-1, keepdim=True)
+    var = y.var(-1, keepdim=True, correction=0)
+    yn = (y - mu_) * torch.rsqrt(var + 64e-5) * (1.0 + p["gn"])[None, None]
+    x = x + (yn.reshape(B, T, D).to(dtype) * g) @ p["wo"]
+
+    # ---- channel mix --------------------------------------------------------
+    hc = norm(x, p["ln_c"], cfg.norm_kind, cfg.norm_eps)
+    dxc = _token_shift(hc, x_cm_prev) - hc
+    xk = hc + dxc * p["cmu_k"]
+    xr = hc + dxc * p["cmu_r"]
+    kk = torch.square(F.relu(xk @ p["cwk"]))
+    x = x + torch.sigmoid(xr @ p["cwr"]) * (kk @ p["cwv"])
+
+    if writes:
+        cache["x_tm"].copy_(h[:, -1])
+        cache["x_cm"].copy_(hc[:, -1])
+    return x, cache
 
 
 # =========================================================================== #

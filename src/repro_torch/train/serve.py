@@ -4,8 +4,8 @@ queue (a port of the JAX package's ``train/serve.py``).
 Requests arrive with prompts and are packed into a fixed number of decode
 slots; finished slots are refilled from the queue.  Greedy or temperature
 sampling.  Where the reference jit-compiles one decode program of fixed
-shape, the port runs the same fixed-shape step eagerly, with the attention
-and RG-LRU kernels on the card.
+shape, the port runs the same fixed-shape step eagerly, with the attention,
+RG-LRU and WKV kernels on the card.
 """
 from __future__ import annotations
 

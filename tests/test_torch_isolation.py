@@ -51,8 +51,9 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
     assert "repro_torch.kernels.ops" in out["modules"]
     for mod in ("device", "models.config", "models.layers", "models.blocks",
                 "models.backbone", "models.convert", "configs",
-                "configs.recurrentgemma_2b", "kernels.flash_attention",
-                "kernels.rglru_scan", "train.serve", "launch.serve"):
+                "configs.recurrentgemma_2b", "configs.rwkv6_7b",
+                "kernels.flash_attention", "kernels.rglru_scan",
+                "kernels.rwkv6_scan", "train.serve", "launch.serve"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
@@ -80,9 +81,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         run_batched(grid([w], ["GreedyP */OPT=MIN"]))
 
 
-def test_serving_entry_points_default_to_cuda_and_raise_without_it():
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+def test_serving_entry_points_default_to_cuda_and_raise_without_it(arch):
     _need_no_cuda()
-    cfg = get_reduced("recurrentgemma-2b")
+    cfg = get_reduced(arch)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(RuntimeError, match="CUDA"):
         backbone.init_params(cfg, gen)
@@ -92,7 +94,7 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedServer(cfg, params, ServeConfig(slots=1, cache_len=8))
     with pytest.raises(RuntimeError, match="CUDA"):
-        serve_main(["--arch", "recurrentgemma-2b", "--reduced"])
+        serve_main(["--arch", arch, "--reduced"])
 
 
 def test_block_builders_take_the_device_from_the_caller():
@@ -100,11 +102,13 @@ def test_block_builders_take_the_device_from_the_caller():
     points above choose one (the card)."""
     cfg = get_reduced("recurrentgemma-2b")
     gen = torch.Generator().manual_seed(0)
-    for build in (blocks.attn_init, blocks.rglru_init, blocks.mlp_block_init):
+    for build in (blocks.attn_init, blocks.rglru_init, blocks.mlp_block_init,
+                  blocks.rwkv6_init):
         with pytest.raises(TypeError):
             build(cfg, gen, torch.float32)
-        assert build(cfg, gen, torch.float32, "cpu")["ln"].device.type == "cpu"
-    for build in (blocks.attn_cache, blocks.rglru_cache):
+        p = build(cfg, gen, torch.float32, "cpu")
+        assert all(t.device.type == "cpu" for t in p.values())
+    for build in (blocks.attn_cache, blocks.rglru_cache, blocks.rwkv6_cache):
         with pytest.raises(TypeError):
             build(cfg, 1, 8, torch.float32)
     with pytest.raises(TypeError):
