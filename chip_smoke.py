@@ -9,7 +9,10 @@ all started together.  Phases, one JSON line each; the first phase that
 fails ends the run with exit code 1:
 
 1. device    — the card's name and power limit (nvidia-smi), the build of
-               every kernel library (seconds, ptxas registers and spills);
+               every kernel library (seconds; ptxas registers and spills
+               of every kernel function), and the HGMMA instructions in
+               the SASS of the tensor-core prefill instances (cuobjdump;
+               the phase fails if there are none);
 2. kernels   — each allocation kernel against its plain PyTorch version on
                the card, bit for bit (the matvec also against a numpy loop;
                the round on bottlenecks made of near-ties, and most lanes
@@ -31,7 +34,11 @@ fails ends the run with exit code 1:
                card, fp32 and bf16, at RecurrentGemma-2B's shapes (a prompt
                of 2,100 tokens under the 2,048 window), without a window,
                non-causal, at Llama-3-8B's GQA widths, per-request decode
-               lengths past the cache, T = 1 and a long T, and at
+               lengths past the cache, T = 1 and a long T; bf16 cases
+               that reach every attention instance and edge (hd 32 to
+               256, hdv != hd, a prompt shorter than a key tile, GQA with
+               B > 1, decode lengths 0, S - 1, S and past S, groups of 1,
+               4, 10, 32 and 64 heads), each with its route; and at
                RWKV6-7B's (a decode step of 4 slots, a prefill of 2,000
                tokens, a ragged dk != dv, decays down to 1e-3 over 2,000
                steps, the state written in place) (fp32 2e-5, bf16 2e-2,
@@ -63,7 +70,10 @@ fails ends the run with exit code 1:
                (bytes over 3.35 TB/s, or operations over the rate of the
                inputs' precision — bf16 on the tensor cores for bf16
                inputs, whatever the kernel itself uses — whichever is
-               larger, counting what these inputs need).
+               larger, counting what these inputs need); the attention
+               entries also name the instance that ran (its route, the
+               ptxas registers and spills of its functions) and split
+               their device time by kernel name.
 
 Then the nvidia-smi line again, the kernels line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -95,6 +105,7 @@ _NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the round
 
 # the port's kernels, by the names the profiler gives them
 _PORT_KERNELS = ("alloc_matvec_kernel", "maxmin_round_kernel", "attn_kernel",
+                 "attn_wgmma_kernel", "decode_kernel", "decode_mma_kernel",
                  "decode_combine_kernel", "rglru_scan_kernel", "wkv6_kernel")
 
 _OUTCOMES = ("max_stretch", "mean_stretch", "makespan", "underutilization",
@@ -244,6 +255,29 @@ def eager_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_us_by_kernel(torch, fn, iters):
+    """Device microseconds per call of each kernel that ``fn`` launches
+    (``torch.profiler`` over ``iters`` eager calls after a warm-up; a
+    second trace when the first saw no device activity), or why it was
+    not measured."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        for _ in range(2):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            us = {e.key[:80]: e.device_time_total / iters
+                  for e in prof.key_averages() if e.device_time_total > 0}
+            if us:
+                return us
+        return {"note": "the traces held no device activity: not measured"}
+    except Exception as exc:  # noqa: BLE001 — then not measured
+        return {"note": f"{type(exc).__name__}: {exc}: not measured"}
+
+
 def bound_ms(n_bytes, n_ops, ops_per_s=FP64_OPS_PER_S):
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / ops_per_s * 1e3
@@ -254,6 +288,49 @@ def bound_ms(n_bytes, n_ops, ops_per_s=FP64_OPS_PER_S):
 # --------------------------------------------------------------------------- #
 # phases                                                                       #
 # --------------------------------------------------------------------------- #
+def ptxas_functions(log):
+    """Per kernel function of a build log (``-Xptxas -v``): registers and
+    the bytes of spill stores and loads."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            words = ln.replace(",", " ").split()
+            out[name]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[name]["spill_loads"] = int(words[-4])
+        elif name and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            out[name]["registers"] = int(words[words.index("registers") - 1])
+    return out
+
+
+def ptxas_of(functions, fragment):
+    """The ptxas entry of the one function whose mangled name holds
+    ``fragment`` (a template instance, e.g. ``attn_wgmma_kernelILi4E``)."""
+    hits = [dict(v, function=k) for k, v in functions.items()
+            if fragment in k]
+    if len(hits) != 1:
+        raise PhaseFailed(f"{len(hits)} kernel functions match {fragment}")
+    return hits[0]
+
+
+def sass_counts(cuda_lib, lib_path, opcode):
+    """Instructions of ``opcode`` per kernel function in a built library's
+    SASS, by ``cuobjdump`` from the toolkit that built it."""
+    tool = Path(cuda_lib._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = Counter(), None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+        elif name and opcode in ln:
+            counts[name] += 1
+    return counts
+
+
 def phase_device(torch, cuda_lib):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -264,18 +341,25 @@ def phase_device(torch, cuda_lib):
     t0 = time.perf_counter()
     cuda_lib.load_all()
     build_s = time.perf_counter() - t0
+    info = cuda_lib.build_info()
     libraries = {
-        name: {"build_s": info["build_s"], "cached": info["cached"],
-               "path": info["path"], "flags": info["flags"],
-               "ptxas": [ln.strip() for ln in info["log"].splitlines()
-                         if "registers" in ln or "spill" in ln]}
-        for name, info in cuda_lib.build_info().items()}
-    emit({"phase": "device", "ok": True, "nvidia_smi": smi_line,
+        name: {"build_s": lib["build_s"], "cached": lib["cached"],
+               "path": lib["path"], "flags": lib["flags"],
+               "ptxas": ptxas_functions(lib["log"])}
+        for name, lib in info.items()}
+    hgmma = {k: v for k, v in sass_counts(
+        cuda_lib, info["attention"]["path"], "HGMMA").items()
+        if "attn_wgmma_kernel" in k}
+    ok = len(hgmma) == 4 and all(v > 0 for v in hgmma.values())
+    emit({"phase": "device", "ok": ok, "nvidia_smi": smi_line,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "libraries": libraries})
-    return smi_line
+          "build_s": build_s, "libraries": libraries,
+          "hgmma_per_prefill_instance": hgmma})
+    if not ok:
+        raise PhaseFailed("the tensor-core prefill instances hold no HGMMA")
+    return smi_line, libraries, hgmma
 
 
 def phase_kernels(torch, np):
@@ -401,9 +485,9 @@ def start_device_trace(torch):
 def device_busy(prof, wall_s):
     """What the trace saw of the card: seconds in which a kernel or a copy
     ran (the union of their intervals), that over ``wall_s``, seconds
-    summed by kind (the port's kernels, other kernels, copies) and the
-    eight names with the most summed seconds."""
-    spans, by_kind, by_name = [], Counter(), Counter()
+    summed by kind (the port's kernels, other kernels, copies), the eight
+    names with the most summed seconds and the port's kernels by name."""
+    spans, by_kind, by_name, by_port = [], Counter(), Counter(), Counter()
     for e in prof.events():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -413,6 +497,7 @@ def device_busy(prof, wall_s):
             kind = "copies"
         elif any(k in e.name for k in _PORT_KERNELS):
             kind = "port_kernels"
+            by_port[e.name[:80]] += (end - start) / 1e6
         else:
             kind = "other_kernels"
         by_kind[kind] += (end - start) / 1e6
@@ -431,7 +516,8 @@ def device_busy(prof, wall_s):
     busy_us += hi - lo
     return {"busy_s": busy_us / 1e6, "busy_share": busy_us / 1e6 / wall_s,
             "device_events": len(spans), "summed_s": dict(by_kind),
-            "top_kernels_s": dict(by_name.most_common(8))}
+            "top_kernels_s": dict(by_name.most_common(8)),
+            "port_kernels_s": dict(by_port.most_common())}
 
 
 def host_ops(torch, fn):
@@ -608,10 +694,54 @@ def attention_pairs(Tq, Tk, causal, window, q_offset=0):
     return total
 
 
-def phase_serve_kernels(torch):
+def prefill_check(torch, gen, dt, case):
+    """One flash attention case against the plain version, with its route.
+    case: (label, B, Tq, Tk, H, Hkv, hd, hdv, causal, window, q_offset)."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_plain, flash_decode_cuda,
-        flash_decode_plain)
+        attention_route, flash_attention_cuda, flash_attention_plain)
+    label, B, Tq, Tk, H, Hkv, hd, hdv, causal, window, off = case
+    name = _dtype_name(torch, dt)
+    q = _randn(torch, gen, (B, Tq, H, hd), dt)
+    k = _randn(torch, gen, (B, Tk, Hkv, hd), dt)
+    v = _randn(torch, gen, (B, Tk, Hkv, hdv), dt)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               q_offset=off)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=off)
+    torch.cuda.synchronize()
+    return {"kernel": "flash_attention", "case": label, "dtype": name,
+            "route": attention_route(q, k, v),
+            "shape": [B, Tq, Tk, H, Hkv, hd, hdv], "causal": causal,
+            "window": window, "q_offset": off, "max_abs_err": _err(got, want),
+            "ok": got.dtype == dt and _within(torch, got, want, TOL[name],
+                                              TOL[name])}
+
+
+def decode_check(torch, gen, dt, case):
+    """One flash decode case against the plain version, with its route.
+    case: (label, B, S, H, Hkv, hd, hdv, q dtype, lengths); the cache has
+    type ``dt``."""
+    from repro_torch.kernels.flash_attention import (
+        decode_route, flash_decode_cuda, flash_decode_plain)
+    label, B, S, H, Hkv, hd, hdv, qdt, lens = case
+    name = _dtype_name(torch, dt)
+    q = _randn(torch, gen, (B, H, hd), qdt)
+    k = _randn(torch, gen, (B, S, Hkv, hd), dt)
+    v = _randn(torch, gen, (B, S, Hkv, hdv), dt)
+    cur = torch.tensor(lens, device="cuda")
+    got = flash_decode_cuda(q, k, v, cur)
+    want = flash_decode_plain(q, k, v, cur)
+    torch.cuda.synchronize()
+    tol = TOL[name]
+    return {"kernel": "flash_decode", "case": label,
+            "dtype": [_dtype_name(torch, qdt), name],
+            "route": decode_route(q, k, v),
+            "shape": [B, S, H, Hkv, hd, hdv], "lens": lens,
+            "max_abs_err": _err(got, want),
+            "ok": got.dtype == qdt and _within(torch, got, want, tol, tol)}
+
+
+def phase_serve_kernels(torch):
     from repro_torch.kernels.rglru_scan import (linear_recurrence_plain,
                                                 rglru_scan_cuda)
     from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
@@ -619,52 +749,62 @@ def phase_serve_kernels(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
     checks = []
-    for dt in (torch.float32, torch.bfloat16):
-        name = _dtype_name(torch, dt)
-        # (label, B, Tq, Tk, H, Hkv, hd, causal, window, q_offset)
+    bf = torch.bfloat16
+    for dt in (torch.float32, bf):
+        # (label, B, Tq, Tk, H, Hkv, hd, hdv, causal, window, q_offset)
         for case in [
-                ("recurrentgemma_prefill", 1, 2100, 2100, 10, 1, 256, True,
-                 2048, 0),
-                ("causal_no_window", 1, 700, 700, 10, 1, 256, True, 0, 0),
-                ("non_causal_ragged", 2, 130, 200, 4, 4, 64, False, 0, 0),
-                ("llama3_8b_gqa", 1, 1024, 1024, 32, 8, 128, True, 0, 0),
-                ("q_offset", 2, 64, 512, 4, 1, 128, True, 0, 448)]:
-            label, B, Tq, Tk, H, Hkv, hd, causal, window, off = case
-            q = _randn(torch, gen, (B, Tq, H, hd), dt)
-            k = _randn(torch, gen, (B, Tk, Hkv, hd), dt)
-            v = _randn(torch, gen, (B, Tk, Hkv, hd), dt)
-            got = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                       q_offset=off)
-            want = flash_attention_plain(q, k, v, causal=causal,
-                                         window=window, q_offset=off)
-            torch.cuda.synchronize()
-            checks.append({"kernel": "flash_attention", "case": label,
-                           "dtype": name, "shape": [B, Tq, Tk, H, Hkv, hd],
-                           "window": window, "max_abs_err": _err(got, want),
-                           "ok": got.dtype == dt and _within(
-                               torch, got, want, TOL[name], TOL[name])})
-        # (label, B, S, H, Hkv, hd, q dtype, lengths)
+                ("recurrentgemma_prefill", 1, 2100, 2100, 10, 1, 256, 256,
+                 True, 2048, 0),
+                ("causal_no_window", 1, 700, 700, 10, 1, 256, 256, True, 0,
+                 0),
+                ("non_causal_ragged", 2, 130, 200, 4, 4, 64, 64, False, 0,
+                 0),
+                ("llama3_8b_gqa", 1, 1024, 1024, 32, 8, 128, 128, True, 0,
+                 0),
+                ("q_offset", 2, 64, 512, 4, 1, 128, 128, True, 0, 448)]:
+            checks.append(prefill_check(torch, gen, dt, case))
+        # (label, B, S, H, Hkv, hd, hdv, q dtype, lengths)
         for case in [
-                ("recurrentgemma_decode", 4, 2048, 10, 1, 256, dt,
+                ("recurrentgemma_decode", 4, 2048, 10, 1, 256, 256, dt,
                  [5, 2047, 2048, 5000]),
-                ("fp32_query_cache_" + name, 4, 2048, 10, 1, 256,
-                 torch.float32, [1500, 2100, 17, 4095]),
-                ("llama3_8b_gqa", 3, 512, 32, 8, 128, dt, [0, 300, 511])]:
-            label, B, S, H, Hkv, hd, qdt, lens = case
-            q = _randn(torch, gen, (B, H, hd), qdt)
-            k = _randn(torch, gen, (B, S, Hkv, hd), dt)
-            v = _randn(torch, gen, (B, S, Hkv, hd), dt)
-            cur = torch.tensor(lens, device="cuda")
-            got = flash_decode_cuda(q, k, v, cur)
-            want = flash_decode_plain(q, k, v, cur)
-            torch.cuda.synchronize()
-            tol = TOL[name]
-            checks.append({"kernel": "flash_decode", "case": label,
-                           "dtype": [_dtype_name(torch, qdt), name],
-                           "shape": [B, S, H, Hkv, hd], "lens": lens,
-                           "max_abs_err": _err(got, want),
-                           "ok": got.dtype == qdt and _within(
-                               torch, got, want, tol, tol)})
+                ("fp32_query_cache_" + _dtype_name(torch, dt), 4, 2048, 10,
+                 1, 256, 256, torch.float32, [1500, 2100, 17, 4095]),
+                ("llama3_8b_gqa", 3, 512, 32, 8, 128, 128, dt,
+                 [0, 300, 511])]:
+            checks.append(decode_check(torch, gen, dt, case))
+    # bf16 cases for every instance and edge of the tensor-core kernels:
+    # head dims 32 to 256 (one to four V panels, hdv != hd), a prompt
+    # shorter than one 64-key tile, GQA with B > 1, a window that cuts
+    # tiles with q_offset, non-causal Tk < Tq
+    for case in [
+            ("hd64_window", 2, 300, 300, 8, 2, 64, 64, True, 100, 0),
+            ("hd32", 1, 200, 200, 4, 1, 32, 32, True, 0, 0),
+            ("hd80_hdv48", 1, 100, 100, 2, 1, 80, 48, True, 0, 0),
+            ("hd128_hdv192", 1, 257, 257, 4, 2, 128, 192, True, 0, 0),
+            ("short_prompt", 1, 40, 40, 10, 1, 256, 256, True, 0, 0),
+            ("gqa32_8_batch2", 2, 300, 300, 32, 8, 128, 128, True, 0, 0),
+            ("window_q_offset", 1, 200, 900, 10, 1, 256, 256, True, 256,
+             700),
+            ("non_causal_short_keys", 2, 200, 50, 4, 1, 128, 128, False, 0,
+             0)]:
+        checks.append(prefill_check(torch, gen, bf, case))
+    # decode: lengths 0, S - 1, S and past S; groups of 1, 4, 10, 32 and
+    # 64 heads (one, two and four 16-row tiles); an fp32 q on a bf16 cache
+    # with a large group; hd 72 (the CUDA-core instance on a bf16 cache);
+    # a batch large enough for one split
+    for case in [
+            ("lengths_0_S-1_S_past", 4, 2048, 10, 1, 256, 256, bf,
+             [0, 2047, 2048, 5000]),
+            ("mha_g1", 2, 512, 8, 8, 128, 128, bf, [100, 511]),
+            ("gqa32_8", 4, 1024, 32, 8, 128, 128, bf, [0, 1023, 1024, 3000]),
+            ("g32", 2, 300, 64, 2, 64, 64, bf, [0, 150]),
+            ("g64", 2, 300, 64, 1, 128, 128, bf, [10, 299]),
+            ("g64_fp32_query", 2, 300, 64, 1, 128, 128, torch.float32,
+             [100, 299]),
+            ("hd72", 2, 100, 6, 2, 72, 72, bf, [50, 99]),
+            ("one_split", 64, 256, 32, 8, 128, 128, bf,
+             list(range(0, 640, 10)))]:
+        checks.append(decode_check(torch, gen, bf, case))
     for B, T, W in [(4, 1, 2560), (1, 2100, 2560), (2, 37, 100)]:
         a = torch.sigmoid(_randn(torch, gen, (B, T, W), torch.float32)) * 0.9
         b = _randn(torch, gen, (B, T, W), torch.float32)
@@ -923,7 +1063,29 @@ def phase_serve(torch, np, arch):
     return launches, lens
 
 
-def serve_kernel_entries(torch, np, launches, prompt_lens):
+def attention_instances(functions, route, q, v_or_cache, G, decode,
+                        hgmma=None):
+    """The kernel functions that a served attention call ran, with their
+    ptxas registers and spills (and HGMMA instructions, from ``hgmma``):
+    the instance ``route`` names (template arguments as csrc/attention.cu
+    picks them) and, for decode, the combine."""
+    qt = "13__nv_bfloat16" if q.element_size() == 2 else "f"   # q's type
+    if not decode:
+        nvp = -(-v_or_cache.shape[-1] // 64)
+        names = ([f"attn_wgmma_kernelILi{nvp}E"] if route == "wgmma" else [])
+    else:
+        mt = 1 if G <= 16 else 2 if G <= 32 else 4
+        names = ([f"decode_mma_kernelI{qt}Li{mt}E"] if route == "mma"
+                 else []) + [f"decode_combine_kernelI{qt}E"]
+    found = [ptxas_of(functions, n) for n in names]
+    for f in found:
+        if hgmma is not None:
+            f["hgmma"] = hgmma.get(f["function"], 0)
+    return {"route": route, "functions": found}
+
+
+def serve_kernel_entries(torch, np, launches, prompt_lens, functions,
+                         hgmma):
     """The kernels line's entries of the serving kernels, each at the shape
     its path used most (bf16, as served): the median prompt for prefill
     attention, the four slots at mid-run positions for decode, and the
@@ -933,8 +1095,8 @@ def serve_kernel_entries(torch, np, launches, prompt_lens):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_plain, flash_decode_cuda,
-        flash_decode_plain)
+        attention_route, decode_route, flash_attention_cuda,
+        flash_attention_plain, flash_decode_cuda, flash_decode_plain)
     from repro_torch.kernels.rglru_scan import (linear_recurrence_plain,
                                                 rglru_scan_cuda)
 
@@ -971,6 +1133,9 @@ def serve_kernel_entries(torch, np, launches, prompt_lens):
         "wrapper": "src/repro_torch/kernels/flash_attention.py",
         "replaces": "src/repro/kernels/flash_attention.py:78",
         "launches": launches["flash_attention"],
+        "instance": attention_instances(functions, attention_route(q, k, v),
+                                        q, v, H // Hkv, decode=False,
+                                        hgmma=hgmma),
         "shape": [1, L, H, Hkv, hd], "dtype": "bfloat16", "window": win,
         "max_abs_err": _err(got, want),
         "library_max_abs_diff": _err(got, lib_out),
@@ -980,6 +1145,9 @@ def serve_kernel_entries(torch, np, launches, prompt_lens):
             q, k, v, causal=True, window=win), 20),
         "plain_ms": device_ms(torch, lambda: flash_attention_plain(
             q, k, v, causal=True, window=win), 2),
+        "device_us_by_kernel": device_us_by_kernel(
+            torch, lambda: flash_attention_cuda(q, k, v, causal=True,
+                                                window=win), 20),
         "library": "F.scaled_dot_product_attention",
         "library_ms": device_ms(torch, sdpa, 20),
         "bound_ms": fa_bound, "bound_by": fa_by,
@@ -1017,6 +1185,8 @@ def serve_kernel_entries(torch, np, launches, prompt_lens):
         "wrapper": "src/repro_torch/kernels/flash_attention.py",
         "replaces": "src/repro/kernels/flash_attention.py:162",
         "launches": launches["flash_decode"],
+        "instance": attention_instances(functions, decode_route(q, kc, vc),
+                                        q, vc, H // Hkv, decode=True),
         "shape": [B, S, H, Hkv, hd], "lens": lens_list, "dtype": "bfloat16",
         "max_abs_err": _err(got, want),
         "library_max_abs_diff": _err(got, lib_out),
@@ -1026,6 +1196,8 @@ def serve_kernel_entries(torch, np, launches, prompt_lens):
             q, kc, vc, lens), 200),
         "plain_ms": device_ms(torch, lambda: flash_decode_plain(
             q, kc, vc, lens), 20),
+        "device_us_by_kernel": device_us_by_kernel(
+            torch, lambda: flash_decode_cuda(q, kc, vc, lens), 200),
         "library": "F.scaled_dot_product_attention",
         "library_ms": device_ms(torch, sdpa_decode, 200),
         "bound_ms": fd_bound, "bound_by": fd_by,
@@ -1218,7 +1390,7 @@ def main() -> int:
 
     phase = "device"
     try:
-        smi_line = phase_device(torch, cuda_lib)
+        smi_line, libraries, hgmma = phase_device(torch, cuda_lib)
         phase = "kernels"
         phase_kernels(torch, np)
         phase = "allocator"
@@ -1237,8 +1409,8 @@ def main() -> int:
         phase = "kernels line"
         alloc_entries, alloc_ok = phase_kernel_line(torch, np, launches,
                                                     stats)
-        serve_entries, serve_ok = serve_kernel_entries(torch, np,
-                                                       *served[RG])
+        serve_entries, serve_ok = serve_kernel_entries(
+            torch, np, *served[RG], libraries["attention"]["ptxas"], hgmma)
         wkv, wkv_ok = wkv6_entry(torch, np, *served[RWKV])
         line = {"kernels": alloc_entries + serve_entries + [wkv]}
         ok = alloc_ok and serve_ok and wkv_ok

@@ -46,9 +46,9 @@ LIBRARIES = {
     }),
     "attention": (_CSRC / "attention.cu", _COMMON, {
         "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _F, _P],
+                                  _I, _I, _I, _I, _I, _I, _F, _P],
         "repro_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _F, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _F, _P],
     }),
     "rglru": (_CSRC / "rglru.cu", _COMMON, {
         "repro_rglru_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
