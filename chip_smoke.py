@@ -14,9 +14,14 @@ fails ends the run with exit code 1:
                the SASS of the tensor-core prefill instances (cuobjdump;
                the phase fails if there are none);
 2. kernels   — each allocation kernel against its plain PyTorch version on
-               the card, bit for bit (the matvec also against a numpy loop;
-               the round on bottlenecks made of near-ties, and most lanes
-               must bind on a near-tie that is not exact);
+               the card, bit for bit, and against numpy: the matvec
+               against a numpy loop (rows ragged against its row group, W
+               odd, 0 and 512); the OPT=MIN solve in its yields and in
+               each lane's rounds, and against ``maxmin_yields_csr`` lane
+               by lane, on both routes, with lanes that have nothing
+               active, lanes capped at 1 and lanes whose second round
+               binds on near-ties (most must bind on a near-tie that is
+               not exact);
 3. allocator — the batched OPT=MIN water-filling and the OPT=AVG floor on
                the card against the numpy kernels, 200 seeded random
                incidences each, bit for bit;
@@ -25,8 +30,8 @@ fails ends the run with exit code 1:
                EASY cells) on the card; every outcome field of every record
                must equal the host numpy ``Engine`` run of the same cell
                (timed, with its allocation share);
-               the kernel launch counts are zeroed just before and read just
-               after; ``torch.profiler`` traces the card's activity over the
+               the kernel launch counts (and the solve's routes) are
+               zeroed just before and read just after; ``torch.profiler`` traces the card's activity over the
                run for the device's busy share; peak device memory is
                counted from the allocation at the phase's start;
 5. serve kernels — flash attention, flash decode, the RG-LRU scan and the
@@ -101,10 +106,10 @@ BF16_TC_OPS_PER_S = 989e12
 N_JOBS, N_NODES, LOAD = 1000, 128, 0.7
 MIN_SEEDS = 16          # GreedyP */OPT=MIN cells in phase 4 (slice)
 
-_NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the round
+_NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the solve
 
 # the port's kernels, by the names the profiler gives them
-_PORT_KERNELS = ("alloc_matvec_kernel", "maxmin_round_kernel", "attn_kernel",
+_PORT_KERNELS = ("alloc_matvec_kernel", "maxmin_solve_kernel", "attn_kernel",
                  "attn_wgmma_kernel", "decode_kernel", "decode_mma_kernel",
                  "decode_combine_kernel", "rglru_scan_kernel", "wkv6_kernel")
 
@@ -134,30 +139,82 @@ def incidence_batch(rng, B, N, W):
     return need * mult.astype(np.float64)
 
 
-def round_inputs(rng, B, N, W):
-    """Inputs of one freeze round whose bottleneck is a cluster of near-ties.
+def solve_inputs(rng, B, N, W):
+    """Inputs of the OPT=MIN solve, (present, weight, active) of B lanes,
+    most of whose second round binds on a cluster of near-ties, and each
+    lane's pilot node (-1 where the lane has none).
 
-    A quarter of the nodes (need 1) sit at the lane's base level plus a
-    multiple of 0.3e-15 up to 3e-15 either way, so the binding set mixes
-    exact ties, levels within the 1e-15 scan tolerance and levels just
-    beyond it, and depends on the scan order.  Every other node has a level
-    in [0.45, 0.5], above all planted ones, or no need.  A tenth of the
-    lanes has no need at all, so its level caps at 1."""
+    Such a lane has a pilot node with weight 1 on four pilot columns, so
+    round 1 binds it alone at level 1/4 and freezes those columns.  A
+    quarter of the other nodes are planted: each holds one pilot column
+    with weight 4 (1 - t) and one private column with weight 1, so from
+    round 2 on its frozen use is 1 - t and its need 1: its level sits at
+    the lane's base t in [0.3, 0.45] plus a multiple of 0.3e-15 up to
+    3e-15 either way (exact ties, levels within the 1e-15 scan tolerance
+    and levels just beyond it, in random node order).  The remaining
+    nodes hold one column of their own set with need in [1.6, 2] (levels
+    above all planted ones) or nothing.  Every sixth lane is a random
+    incidence, every seventh has no active column, and every eighth
+    needs at most 1 a node, so its level caps at 1.  Where the shape is
+    too small for the structure, a lane is a random incidence."""
     import numpy as np
-    base = rng.uniform(0.05, 0.4, (B, 1))
-    planted = rng.random((B, N)) < 0.25
-    offs = rng.integers(-10, 11, (B, N)) * 0.3e-15
-    u_other = rng.choice([0.0, 0.5, 2.0], (B, N))
-    level_other = rng.uniform(0.45, 0.5, (B, N))
-    u_need = np.where(planted, 1.0, u_other)
-    f_use = np.where(planted, 1.0 - (base + offs),
-                     1.0 - level_other * u_other)
-    u_need[rng.random(B) < 0.1] = 0.0
-    present = rng.random((B, N, W)) < 0.2
-    frozen = rng.random((B, W)) < 0.3
-    y = np.where(frozen, rng.random((B, W)), 0.0)
-    live = rng.random(B) < 0.9
-    return f_use, u_need, present, frozen, y, live
+    present = np.zeros((B, N, W), dtype=bool)
+    weight = np.zeros((B, N, W))
+    active = np.zeros((B, W), dtype=bool)
+    pilots = np.full(B, -1)
+    for b in range(B):
+        p, w = present[b], weight[b]
+        if b % 7 == 6:
+            continue                                   # nothing active
+        if b % 8 == 7:                                 # capped at 1
+            for n in range(N):
+                cols = rng.choice(W, min(W, int(rng.integers(0, 3))),
+                                  replace=False)
+                p[n, cols], w[n, cols] = True, 0.5
+        elif b % 6 == 5 or N < 8 or W < 12:            # random incidence
+            w[:] = incidence_batch(rng, 1, N, W)[0]
+            p[:] = w > 0
+            p |= (rng.random((N, W)) < 0.05) & ~p      # zero-need entries
+        else:
+            cols = rng.permutation(W)
+            pilot, rest = cols[:4], cols[4:]
+            private, own = rest[: len(rest) // 2], rest[len(rest) // 2:]
+            nodes = rng.permutation(N)
+            pilots[b] = nodes[0]
+            p[nodes[0], pilot], w[nodes[0], pilot] = True, 1.0
+            base = rng.uniform(0.3, 0.45)
+            for k, n in enumerate(nodes[1:]):
+                if k < (N - 1) // 4:                   # planted
+                    t = base + int(rng.integers(-10, 11)) * 0.3e-15
+                    j, jp = rng.choice(pilot), rng.choice(private)
+                    p[n, j], w[n, j] = True, 4.0 * (1.0 - t)
+                    p[n, jp], w[n, jp] = True, 1.0
+                elif rng.random() < 0.8:
+                    j = rng.choice(own)
+                    p[n, j], w[n, j] = True, rng.uniform(1.6, 2.0)
+        used = p.any(axis=0)
+        active[b] = used | (rng.random(W) < 0.5)
+        p[:, ~active[b]], w[:, ~active[b]] = False, 0.0
+    return present, weight, active, pilots
+
+
+def second_round(present, weight, active, pilots):
+    """f_use and u_need of round 2 of the solve (numpy, sequential
+    matvecs) of the lanes of :func:`solve_inputs`, whose round 1 binds the
+    pilot node alone: its columns frozen at 1/4."""
+    import numpy as np
+    B, N, W = weight.shape
+    frozen = ~active
+    y = np.zeros((B, W))
+    for b in np.nonzero(pilots >= 0)[0]:
+        cols = present[b, pilots[b]]
+        frozen[b] |= cols
+        y[b, cols] = 0.25
+    f_use, u_need = np.zeros((B, N)), np.zeros((B, N))
+    for j in range(W):
+        f_use = f_use + weight[:, :, j] * np.where(frozen, y, 0.0)[:, None, j]
+        u_need = u_need + weight[:, :, j] * (~frozen)[:, None, j]
+    return f_use, u_need
 
 
 def binding_sets(f_use, u_need, live):
@@ -362,16 +419,31 @@ def phase_device(torch, cuda_lib):
     return smi_line, libraries, hgmma
 
 
+def lane_csr(np, present, weight):
+    """One dense lane as the port's CSR incidence (the numpy kernels'
+    input)."""
+    from repro_torch.core.alloc_torch import csr_from_arrays
+    N, W = weight.shape
+    indptr = np.concatenate([[0], np.cumsum(present.sum(axis=1))])
+    rows, cols = np.nonzero(present)
+    return csr_from_arrays(N, W, indptr, cols, weight[rows, cols])
+
+
 def phase_kernels(torch, np):
+    from repro_torch.core.alloc_kernels import maxmin_yields_csr
     from repro_torch.kernels.alloc_matvec import (alloc_matvec_cuda,
                                                   alloc_matvec_plain)
-    from repro_torch.kernels.maxmin_round import (maxmin_round_cuda,
-                                                  maxmin_round_plain)
+    from repro_torch.kernels.maxmin_solve import (maxmin_solve_cuda,
+                                                  maxmin_solve_plain,
+                                                  solve_route)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2011)
     checks = []
-    for shape in [(32, 128, 64), (128, 128, 128), (3, 5, 37), (4, 16, 0)]:
+    # N = 100 is ragged against the 16-row group; W = 37 is odd (no
+    # 16-byte loads); W = 512 takes eight 64-column chunks
+    for shape in [(16, 128, 32), (32, 128, 64), (128, 128, 128), (3, 5, 37),
+                  (8, 100, 32), (4, 128, 512), (4, 16, 0)]:
         B, N, W = shape
         w = incidence_batch(rng, B, N, W)
         x = rng.random((B, W))
@@ -386,29 +458,51 @@ def phase_kernels(torch, np):
                        "equal_plain": bool(torch.equal(k, p)),
                        "equal_numpy": bool(np.array_equal(k.cpu().numpy(),
                                                           acc))})
-    for shape in [(32, 128, 64), (16, 128, 64), (3, 5, 37), (4, 16, 0)]:
-        arrays = round_inputs(rng, *shape)
-        args = [torch.from_numpy(a).to(dev) for a in arrays]
-        ky, kf = maxmin_round_cuda(*args)
-        py, pf = maxmin_round_plain(*args)
+    for shape in [(16, 128, 32), (32, 128, 64), (8, 128, 128), (4, 128, 256),
+                  (3, 5, 37), (4, 16, 0)]:
+        present, weight, active, pilots = solve_inputs(rng, *shape)
+        args = [torch.from_numpy(a).to(dev) for a in (present, weight, active)]
+        ky, kr = maxmin_solve_cuda(*args)
+        py, pr = maxmin_solve_plain(*args)
         torch.cuda.synchronize()
-        sets = [s for s in binding_sets(arrays[0], arrays[1], arrays[5])
+        y = ky.cpu().numpy()
+        numpy_bad = sum(
+            not np.array_equal(y[b], maxmin_yields_csr(
+                lane_csr(np, present[b], weight[b]), active[b]))
+            for b in range(shape[0]))
+        sets = [s for s in binding_sets(*second_round(present, weight, active,
+                                                      pilots), pilots >= 0)
                 if s is not None and s[0]]
         near = sum(s[1] for s in sets)
-        check = {"kernel": "maxmin_round", "shape": list(shape),
-                 "equal_plain": bool(torch.equal(ky, py)
-                                     and torch.equal(kf, pf)),
+        check = {"kernel": "maxmin_solve", "shape": list(shape),
+                 "route": solve_route(*args),
+                 "equal_plain": bool(torch.equal(ky, py)),
+                 "equal_plain_rounds": bool(torch.equal(kr, pr)),
+                 "numpy_mismatched_lanes": numpy_bad,
+                 "rounds": kr.tolist(),
+                 "empty_lanes": int((~active.any(axis=1)).sum()),
+                 # one round, every active column at 1
+                 "capped_lanes": int(sum(
+                     active[b].any() and int(kr[b]) == 1
+                     and bool((y[b][active[b]] == 1.0).all())
+                     for b in range(shape[0]))),
                  "binding_lanes": len(sets), "near_tie_lanes": near}
-        if shape[1] == N_NODES:     # at the cluster's width, most lanes
+        if shape[1] == N_NODES and shape[2] <= 128:
+            # at the cluster's width, most round-2 bottlenecks are near-ties
             check["near_ties_ok"] = 2 * near > len(sets)
         checks.append(check)
-    ok = all(c["equal_plain"] and c.get("equal_numpy", True)
-             and c.get("near_ties_ok", True) for c in checks)
+    routes = {c["route"] for c in checks if "route" in c}
+    ok = routes == {"shared", "global"} and all(
+        c["equal_plain"] and c.get("equal_numpy", True)
+        and c.get("equal_plain_rounds", True)
+        and c.get("numpy_mismatched_lanes", 0) == 0
+        and c.get("near_ties_ok", True) for c in checks)
     emit({"phase": "kernels", "ok": ok, "tolerance": "bit-exact",
           "checks": checks})
     if not ok:
-        raise PhaseFailed("a kernel disagrees with its plain version, or "
-                          "the round's inputs hold too few near-ties")
+        raise PhaseFailed("a kernel disagrees with its plain version or the "
+                          "numpy kernel, a route went unchecked, or the "
+                          "solve's inputs hold too few near-ties")
 
 
 def phase_allocator(torch, np):
@@ -570,7 +664,8 @@ def phase_slice(torch, np):
     res = run_batched(cells, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: ops.launches[k] for k in ("alloc_matvec", "maxmin_round")}
+    launches = {k: ops.launches[k] for k in ("alloc_matvec", "maxmin_solve")}
+    routes = {k: dict(v) for k, v in ops.routes.items()}
     peak = torch.cuda.max_memory_allocated() - base
     busy = stop_device_trace(prof, trace_error, wall)
     del prof
@@ -597,6 +692,7 @@ def phase_slice(torch, np):
           "device": busy,
           "dispatches": stats["dispatches"], "rounds": stats["rounds"],
           "host_syncs": stats["host_syncs"], "launches": launches,
+          "routes": routes,
           "serve_min_s": stats["min_s"], "serve_avg_s": stats["avg_s"],
           "max_memory_allocated_bytes": peak,
           "allocated_before_bytes": base,
@@ -1296,18 +1392,20 @@ def wkv6_entry(torch, np, launches, prompt_lens):
     return entry, entry["launches"] > 0 and entry["max_abs_err"] <= WKV_TOL
 
 
-def phase_kernel_line(torch, np, launches, stats):
+def phase_kernel_line(torch, np, launches, stats, functions):
     from repro_torch.kernels.alloc_matvec import (alloc_matvec_cuda,
                                                   alloc_matvec_plain)
-    from repro_torch.kernels.maxmin_round import (maxmin_round_cuda,
-                                                  maxmin_round_plain)
+    from repro_torch.kernels.maxmin_solve import (maxmin_solve_cuda,
+                                                  maxmin_solve_plain,
+                                                  solve_route)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
-    shapes = Counter(stats["min_shapes"]) + Counter(stats["avg_shapes"])
-    mv_shape = shapes.most_common(1)[0][0]
-    rd_shape = stats["min_shapes"].most_common(1)[0][0]
+    mv_shape = stats["avg_shapes"].most_common(1)[0][0]
+    sv_shape = stats["min_shapes"].most_common(1)[0][0]
 
+    # the matvec at the OPT=AVG floor's most used shape (its only launches
+    # on the main path)
     B, N, W = mv_shape
     wt = torch.from_numpy(incidence_batch(rng, B, N, W)).to(dev)
     xt = torch.from_numpy(rng.random((B, W))).to(dev)
@@ -1321,6 +1419,7 @@ def phase_kernel_line(torch, np, launches, stats):
         "wrapper": "src/repro_torch/kernels/alloc_matvec.py",
         "replaces": "src/repro/kernels/alloc_matvec.py:65",
         "launches": launches["alloc_matvec"], "shape": [B, N, W],
+        "ptxas": ptxas_of(functions, "alloc_matvec_kernel"),
         "max_abs_err": float((k - p).abs().max()) if k.numel() else 0.0,
         "library_max_abs_diff": float((k - lib).abs().max()),
         "ms": device_ms(torch, lambda: alloc_matvec_cuda(wt, xt), 200),
@@ -1332,42 +1431,49 @@ def phase_kernel_line(torch, np, launches, stats):
         "bound_ms": mv_bound, "bound_by": mv_by,
     }
 
-    B, N, W = rd_shape
-    arrays = round_inputs(rng, B, N, W)
-    args = [torch.from_numpy(a).to(dev) for a in arrays]
-    ky, kf = maxmin_round_cuda(*args)
-    py, pf = maxmin_round_plain(*args)
+    # the solve at OPT=MIN's most used shape, on engine-like incidences
+    # (needs 0.25-1 times multiplicities 1-3 on a tenth of the entries,
+    # every column running), which take 9-13 rounds a lane
+    B, N, W = sv_shape
+    need = rng.choice([0.25, 0.5, 1.0], (B, 1, W))
+    mult = rng.integers(1, 4, (B, N, W)) * (rng.random((B, N, W)) < 0.1)
+    weight = need * mult
+    args = [torch.from_numpy(a).to(dev) for a in (
+        weight > 0, weight, np.ones((B, W), dtype=bool))]
+    ky, kr = maxmin_solve_cuda(*args)
+    py, pr = maxmin_solve_plain(*args)
     err = float((ky - py).abs().max()) if ky.numel() else 0.0
-    if not torch.equal(kf, pf):
+    if not torch.equal(kr, pr):
         err = float("inf")
-    f_use, u_need, live = arrays[0], arrays[1], arrays[5]
-    n_live = int(live.sum())
-    n_valid = int(((u_need > _NEED_EPS) & live[:, None]).sum())
-    n_binding = sum(len(s[0]) for s in binding_sets(f_use, u_need, live)
-                    if s is not None)
-    # bytes: f_use and u_need of live lanes, the presence rows of their
-    # binding nodes, frozen, y and live in; y and frozen out.  Operations:
-    # at most 11 FP64 ops per valid node of a live lane (level, drop test,
-    # tie test)
-    rd_bound, rd_by = bound_ms(
-        16 * n_live * N + n_binding * W + B * W + 8 * B * W + B
-        + 8 * B * W + B * W,
-        11 * n_valid)
-    round_ = {
-        "name": "maxmin_round", "route": "cuda",
+    rounds = kr.cpu().numpy()
+    # bytes: the weights, the presence mask and the active mask read once,
+    # y written once, a round count a lane; operations: per round of a lane
+    # two chains (a multiply and an add) a (node, column), and 11 a node
+    # (level, drop test, tie test)
+    sv_bound, sv_by = bound_ms(
+        9 * B * N * W + 9 * B * W + 4 * B,
+        int(rounds.sum()) * (4 * N * W + 11 * N))
+    route = solve_route(*args)
+    solve = {
+        "name": "maxmin_solve", "route": "cuda", "instance": route,
         "source": "src/repro_torch/kernels/csrc/alloc.cu",
-        "wrapper": "src/repro_torch/kernels/maxmin_round.py",
-        "replaces": "src/repro/core/alloc_jax.py:229",
-        "launches": launches["maxmin_round"], "shape": [B, N, W],
+        "wrapper": "src/repro_torch/kernels/maxmin_solve.py",
+        "replaces": "src/repro/core/alloc_jax.py:206-276",
+        "launches": launches["maxmin_solve"], "shape": [B, N, W],
+        "ptxas": ptxas_of(functions, "maxmin_solve_kernelILb"
+                          + ("1" if route == "shared" else "0")),
+        "rounds_mean": float(rounds.mean()), "rounds_max": int(rounds.max()),
         "max_abs_err": err,
-        "ms": device_ms(torch, lambda: maxmin_round_cuda(*args), 200),
-        "eager_ms": eager_ms(torch, lambda: maxmin_round_cuda(*args), 200),
-        "plain_ms": device_ms(torch, lambda: maxmin_round_plain(*args), 5),
+        "ms": device_ms(torch, lambda: maxmin_solve_cuda(*args), 200),
+        "eager_ms": eager_ms(torch, lambda: maxmin_solve_cuda(*args), 200),
+        # the plain loop reads the host each round, so no CUDA graph
+        "plain_ms": eager_ms(torch, lambda: maxmin_solve_plain(*args), 3),
+        "plain_ms_how": "eager (host reads a round)",
         "library": None, "library_ms": None,
-        "bound_ms": rd_bound, "bound_by": rd_by,
-        "binding_rows": n_binding,
+        "bound_ms": sv_bound, "bound_by": sv_by,
+        "bound_rate": "HBM 3.35 TB/s; FP64 34 TFLOP/s",
     }
-    kernels = [matvec, round_]
+    kernels = [matvec, solve]
     ok = all(e["launches"] > 0 and e["max_abs_err"] == 0.0 for e in kernels)
     return kernels, ok
 
@@ -1407,8 +1513,8 @@ def main() -> int:
             phase = f"serve {arch}"
             served[arch] = phase_serve(torch, np, arch)
         phase = "kernels line"
-        alloc_entries, alloc_ok = phase_kernel_line(torch, np, launches,
-                                                    stats)
+        alloc_entries, alloc_ok = phase_kernel_line(
+            torch, np, launches, stats, libraries["alloc"]["ptxas"])
         serve_entries, serve_ok = serve_kernel_entries(
             torch, np, *served[RG], libraries["attention"]["ptxas"], hgmma)
         wkv, wkv_ok = wkv6_entry(torch, np, *served[RWKV])

@@ -4,11 +4,13 @@
 matvecs; this module makes *many cells at once* one device dispatch.  The
 CSR incidence is padded to a dense ``(batch, n_nodes, width)`` layout
 (boolean ``present`` mask + float64 ``weight = cpu_need × multiplicity``),
-and the OPT=MIN water-filling steps every lane in lockstep: per freeze
-round two sequential matvecs (frozen use, unfrozen need) and one
-:func:`~repro_torch.kernels.ops.maxmin_round` (bottleneck scan + freeze
-update).  Finished lanes are masked out and idle until the slowest lane
-converges.  The loop condition reads one boolean back per round.
+and the OPT=MIN water-filling of every lane is one
+:func:`~repro_torch.kernels.ops.maxmin_solve`: on the card one launch, in
+which each lane's block runs its own freeze rounds (two sequential
+matvecs, the bottleneck scan, the freeze update) until the lane is done,
+and one host read of the yields and the round counts together.  A lane's
+rounds depend on that lane alone, so this equals the JAX package's
+lockstep loop, where finished lanes idle until the slowest converges.
 
 Bit-identity contract: in float64, every per-lane result is **bit-equal**
 to ``maxmin_yields_csr`` / ``avg_yields_csr`` on that lane's CSR alone:
@@ -19,7 +21,7 @@ to ``maxmin_yields_csr`` / ``avg_yields_csr`` on that lane's CSR alone:
 * the matvec rounds every product and adds left to right over ascending
   columns, never fusing the two (``kernels/alloc_matvec.py``);
 * the bottleneck scan visits nodes in ascending order with the 1e-15 tie
-  rule (``kernels/maxmin_round.py``).
+  rule (``kernels/maxmin_solve.py``).
 
 OPT=AVG is a HiGHS LP — a host simplex solver — so the batched path
 computes the LP's yield floor (``1/max(1, Λ)``, Λ = max sequential node
@@ -154,36 +156,24 @@ def maxmin_yields_batch(
     active: torch.Tensor,
     stats: Optional[Dict[str, int]] = None,
 ) -> torch.Tensor:
-    """OPT=MIN water-filling over a padded dense batch, every lane in
-    lockstep on the tensors' device.  Per lane bit-equal to
-    ``maxmin_yields_csr``.
+    """OPT=MIN water-filling over a padded dense batch on the tensors'
+    device.  Per lane bit-equal to ``maxmin_yields_csr``.
 
     ``present`` (B, N, W) bool, ``weight`` (B, N, W) float64, ``active``
     (B, W) bool.  Returns (B, W) float64 yields.  ``stats``, if given,
-    gains the rounds run and the host syncs taken (one per loop test).
+    gains the rounds of the slowest lane (the lockstep loop's count) and
+    one host sync: the yields come back to the host together with the
+    round counts in one copy, and are returned there.
     """
-    B, N, W = weight.shape
-    dev = weight.device
-    n_active = active.sum(dim=1)                                  # (B,) int64
-    i = torch.zeros((), dtype=torch.int64, device=dev)            # rounds done
-    y = torch.zeros((B, W), dtype=torch.float64, device=dev)
-    frozen = ~active
-    while True:
-        # a lane stops on full freeze or after the n_active + 1 safety cap
-        done = frozen.all(dim=1) | (i >= n_active + 1)
-        if stats is not None:
-            stats["host_syncs"] = stats.get("host_syncs", 0) + 1
-        if bool(done.all()):
-            break
-        live = ~done
-        f_use = ops.alloc_matvec(
-            weight, torch.where(frozen, y, torch.zeros_like(y)))
-        u_need = ops.alloc_matvec(weight, (~frozen).to(torch.float64))
-        y, frozen = ops.maxmin_round(f_use, u_need, present, frozen, y, live)
-        i += 1
-        if stats is not None:
-            stats["rounds"] = stats.get("rounds", 0) + 1
-    return torch.clip(y, 0.0, 1.0)
+    y, rounds = ops.maxmin_solve(present, weight, active)
+    if stats is None:
+        return y
+    host = torch.cat([y.reshape(-1), rounds.to(torch.float64)]).cpu()
+    lane_rounds = host[y.numel():]
+    stats["host_syncs"] = stats.get("host_syncs", 0) + 1
+    stats["rounds"] = stats.get("rounds", 0) + (
+        int(lane_rounds.max()) if lane_rounds.numel() else 0)
+    return host[: y.numel()].view(y.shape)
 
 
 def _avg_lp(inc: CSRIncidence, cols: np.ndarray, y_min: float) -> np.ndarray:
@@ -284,9 +274,9 @@ class TorchBatchedAllocator:
         present, weight, active = self._pad_compact(requests, idx)
         self.stats["dispatches"] += 1
         self.stats["min_shapes"][tuple(weight.shape)] += 1
-        y = maxmin_yields_batch(present, weight, active, stats=self.stats)
-        y = y.cpu().numpy()
-        self.stats["host_syncs"] += 1
+        # one host read: the yields with the round counts
+        y = maxmin_yields_batch(present, weight, active,
+                                stats=self.stats).numpy()
         for b, i in enumerate(idx):
             m = requests[i][1].shape[0]
             out[i] = y[b, :m].copy()

@@ -1,11 +1,12 @@
-"""The water-filling inner matvec (§4.6, batched), plain and CUDA.
+"""The water-filling matvec (§4.6, batched), plain and CUDA.
 
-The batched max-min water-filling (``repro_torch.core.alloc_torch``)
-spends its rounds in one primitive: a *sequential* masked matvec — for
+The batched allocation's primitive is a *sequential* masked matvec — for
 every lane and node, accumulate ``weight[n, j] * x[j]`` over job columns
 ``j`` in strictly ascending order.  The order is the bit-identity contract:
 the numpy kernel (``CSRIncidence.matvec``) accumulates left to right, so
-any reformulation (pairwise sums, ``bmm``) rounds differently.
+any reformulation (pairwise sums, ``bmm``) rounds differently.  The
+OPT=MIN solve runs it inside its own kernel (``kernels/maxmin_solve.py``);
+as a launch of its own it computes the OPT=AVG floor Λ.
 
 Both versions keep the contract:
 
@@ -13,9 +14,14 @@ Both versions keep the contract:
   then runs an adds-only loop over columns (no fused multiply-add can form
   across two separate tensor ops);
 * :func:`alloc_matvec_cuda` launches the Hopper kernel of
-  ``csrc/alloc.cu`` (one thread per row, ``__dmul_rn`` then ``__dadd_rn``,
-  built with ``--fmad=false``).  It replaces the JAX package's Pallas kernel
-  ``kernels/alloc_matvec.py`` (``alloc_matvec`` / ``_mv_kernel``).
+  ``csrc/alloc.cu`` (``__dmul_rn`` then ``__dadd_rn``, built with
+  ``--fmad=false``).  It replaces the JAX package's Pallas kernel
+  ``kernels/alloc_matvec.py`` (``alloc_matvec`` / ``_mv_kernel``).  It is
+  bound by bytes and, at the main path's small shapes, by latency: a block
+  takes one lane and 16 rows (so (16, 128, 32) fills the card with 128
+  blocks), stages their contiguous run of weights into shared memory with
+  coalesced 16-byte loads, all in flight together, and each row's chain
+  then runs out of shared memory.
 
 Padding columns contribute an exact ``+0.0``, which never changes a finite
 partial sum.

@@ -7,11 +7,13 @@ fallback between the two and no process-wide switch: the device of the
 data decides.
 
 ``launches`` counts kernel launches per entry point (plain calls are not
-counted), so a run can show that its main path went through the kernels;
-:func:`reset_launches` zeroes the counts.
+counted), so a run can show that its main path went through the kernels,
+and ``routes`` the launches of an entry point with more than one instance
+by the instance taken; :func:`reset_launches` zeroes both.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -19,22 +21,27 @@ import torch
 from .alloc_matvec import alloc_matvec_cuda, alloc_matvec_plain
 from .flash_attention import (flash_attention_cuda, flash_attention_plain,
                               flash_decode_cuda, flash_decode_plain)
-from .maxmin_round import maxmin_round_cuda, maxmin_round_plain
+from .maxmin_solve import maxmin_solve_cuda, maxmin_solve_plain, solve_route
 from .rglru_scan import linear_recurrence_plain, rglru_scan_cuda
 from .rwkv6_scan import wkv6_cuda, wkv6_plain
 
-__all__ = ["alloc_matvec", "maxmin_round", "flash_attention", "flash_decode",
-           "linear_recurrence", "wkv6", "launches", "reset_launches"]
+__all__ = ["alloc_matvec", "maxmin_solve", "flash_attention", "flash_decode",
+           "linear_recurrence", "wkv6", "launches", "routes",
+           "reset_launches"]
 
 #: kernel launches per entry point since the last reset
-launches: Dict[str, int] = {"alloc_matvec": 0, "maxmin_round": 0,
+launches: Dict[str, int] = {"alloc_matvec": 0, "maxmin_solve": 0,
                             "flash_attention": 0, "flash_decode": 0,
                             "rglru_scan": 0, "wkv6": 0}
+#: launches by the instance taken, since the last reset
+routes: Dict[str, Counter] = {"maxmin_solve": Counter()}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for c in routes.values():
+        c.clear()
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -55,21 +62,17 @@ def alloc_matvec(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return alloc_matvec_plain(weight, x)
 
 
-def maxmin_round(
-    f_use: torch.Tensor,
-    u_need: torch.Tensor,
-    present: torch.Tensor,
-    frozen: torch.Tensor,
-    y: torch.Tensor,
-    live: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One freeze round of the lockstep water-filling (see
-    ``kernels/maxmin_round.py``)."""
-    if _on_cuda(f_use):
-        out = maxmin_round_cuda(f_use, u_need, present, frozen, y, live)
-        launches["maxmin_round"] += 1
+def maxmin_solve(present: torch.Tensor, weight: torch.Tensor,
+                 active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The OPT=MIN water-filling of every lane, ``(y, rounds)`` (see
+    ``kernels/maxmin_solve.py``): on the card one launch and no host
+    read."""
+    if _on_cuda(weight):
+        out = maxmin_solve_cuda(present, weight, active)
+        launches["maxmin_solve"] += 1
+        routes["maxmin_solve"][solve_route(present, weight, active)] += 1
         return out
-    return maxmin_round_plain(f_use, u_need, present, frozen, y, live)
+    return maxmin_solve_plain(present, weight, active)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

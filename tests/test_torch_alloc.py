@@ -1,9 +1,11 @@
 """The port's batched allocator against the JAX and numpy kernels.
 
-On the CPU every per-lane result of ``maxmin_yields_batch`` must be
-bit-equal to the JAX package's lockstep program (``_maxmin_jit("jnp")``
-under float64) and to the numpy ``maxmin_yields_csr`` on that lane's CSR
-alone; padding must never leak into a real lane.  One freeze round in
+On the CPU every per-lane result of ``maxmin_yields_batch`` and of the
+solve (``ops.maxmin_solve``, its plain version here) must be bit-equal to
+the JAX package's lockstep program (``_maxmin_jit("jnp")`` under float64)
+and to the numpy ``maxmin_yields_csr`` on that lane's CSR alone; padding
+must never leak into a real lane, and each lane's round count must equal
+the numpy loop's and that of the lane solved alone.  One freeze round in
 plain PyTorch must follow the numpy scan's 1e-15 tie rule exactly, and
 OPT=AVG must equal ``avg_yields_csr``.  Incidences are carried into the
 port with ``csr_from_arrays``.
@@ -21,7 +23,10 @@ from repro_torch.core import alloc_torch
 from repro_torch.core.alloc_torch import (TorchAllocBackend,
                                           TorchBatchedAllocator,
                                           csr_from_arrays)
-from repro_torch.kernels.maxmin_round import maxmin_round_plain
+from repro_torch.kernels import ops
+from repro_torch.kernels.maxmin_solve import (TILE_SMEM_BYTES,
+                                              maxmin_round_plain,
+                                              maxmin_solve_cuda, solve_route)
 
 
 def _x64():
@@ -79,46 +84,139 @@ def test_maxmin_single_lane_bit_equal(seed):
         assert np.array_equal(y, maxmin_yields_csr(inc, active))
 
 
+def _padded(insts, extra_nodes=5, extra_cols=9, extra_lanes=4):
+    """The port's and the reference's padded batch of the same instances
+    (they must agree), with rows, columns and empty lanes beyond the
+    largest instance."""
+    incs = [i for i, _ in insts]
+    actives = [a for _, a in insts]
+    N = max(i.n_nodes for i in incs) + extra_nodes
+    W = max(i.width for i in incs) + extra_cols
+    B = len(incs) + extra_lanes
+    ours = alloc_torch.pad_batch([_carry(i) for i in incs], actives,
+                                 n_nodes=N, width=W, n_lanes=B)
+    ref = alloc_jax.pad_batch(incs, actives, n_nodes=N, width=W, n_lanes=B)
+    for a, b in zip(ours, ref):
+        assert np.array_equal(a, b)
+    return ours
+
+
 @pytest.mark.parametrize("seed", [11, 12])
 def test_maxmin_batch_matches_jax_and_numpy_with_padding(seed):
     """Co-batched lanes, padded rows/cols and extra empty lanes leave every
-    real lane bit-identical to its solo numpy solve and to the JAX
-    lockstep program on the same padded batch."""
+    real lane of the solve bit-identical to its solo numpy solve and to the
+    JAX lockstep program on the same padded batch; padded lanes run no
+    round."""
     rng = np.random.default_rng(seed)
     insts = [random_instance(rng) for _ in range(12)]
-    incs = [i for i, _ in insts]
-    actives = [a for _, a in insts]
-    N = max(i.n_nodes for i in incs)
-    W = max(i.width for i in incs)
-    present, weight, active = alloc_torch.pad_batch(
-        [_carry(i) for i in incs], actives, n_nodes=N + 5, width=W + 9,
-        n_lanes=len(incs) + 4)
-    ref_p, ref_w, ref_a = alloc_jax.pad_batch(
-        incs, actives, n_nodes=N + 5, width=W + 9, n_lanes=len(incs) + 4)
-    assert np.array_equal(present, ref_p) and np.array_equal(weight, ref_w)
-    assert np.array_equal(active, ref_a)
-    y = alloc_torch.maxmin_yields_batch(
-        *_tensors(present, weight, active)).numpy()
+    present, weight, active = _padded(insts)
+    y, rounds = ops.maxmin_solve(*_tensors(present, weight, active))
+    y = y.numpy()
     with _x64():
-        y_jax = np.asarray(alloc_jax._maxmin_jit("jnp")(ref_p, ref_w, ref_a))
+        y_jax = np.asarray(alloc_jax._maxmin_jit("jnp")(present, weight,
+                                                        active))
     assert np.array_equal(y, y_jax)
+    assert np.array_equal(y, alloc_torch.maxmin_yields_batch(
+        *_tensors(present, weight, active)).numpy())
     for b, (inc, act) in enumerate(insts):
         assert np.array_equal(y[b, : inc.width], maxmin_yields_csr(inc, act))
         assert not y[b, inc.width:].any()
     assert not y[len(insts):].any()
+    assert rounds.dtype == torch.int32 and not rounds[len(insts):].any()
+
+
+def _reference_rounds(present, weight, active):
+    """Per lane, the rounds of the numpy loop (``maxmin_yields_csr``'s
+    loop, with ``_round_reference`` as its body and numpy's sequential
+    matvecs) on that lane alone."""
+    out = []
+    for b in range(weight.shape[0]):
+        p, w, a = present[b:b + 1], weight[b:b + 1], active[b:b + 1]
+        y = np.zeros(a.shape)
+        frozen = ~a
+        n = 0
+        for _ in range(int(a.sum()) + 1):
+            if frozen.all():
+                break
+            f_use = np.zeros((1, w.shape[1]))
+            u_need = np.zeros((1, w.shape[1]))
+            for j in range(w.shape[2]):
+                f_use = f_use + w[:, :, j] * np.where(frozen, y, 0.0)[:, None, j]
+                u_need = u_need + w[:, :, j] * (~frozen)[:, None, j]
+            y, frozen = _round_reference(f_use, u_need, p, frozen, y,
+                                         np.ones(1, dtype=bool))
+            n += 1
+        out.append(n)
+    return out
+
+
+@pytest.mark.parametrize("seed", [21, 22])
+def test_solve_rounds_per_lane_match_numpy_and_solo(seed):
+    """Each lane's round count equals the numpy loop's on that lane and
+    the count of the same lane solved alone: lanes are independent."""
+    rng = np.random.default_rng(seed)
+    insts = [random_instance(rng) for _ in range(10)]
+    present, weight, active = _padded(insts, 2, 3, 2)
+    _, rounds = ops.maxmin_solve(*_tensors(present, weight, active))
+    assert rounds.tolist() == _reference_rounds(present, weight, active)
+    for b in range(present.shape[0]):
+        y_solo, r_solo = ops.maxmin_solve(*_tensors(
+            present[b:b + 1], weight[b:b + 1], active[b:b + 1]))
+        assert int(r_solo[0]) == int(rounds[b])
+    assert int(rounds.max()) > 1
 
 
 def test_maxmin_batch_counts_rounds_and_syncs():
+    """One dispatch is one host sync (the yields and the round counts
+    together); ``rounds`` gains the slowest lane's count, which is the
+    lockstep loop's."""
     rng = np.random.default_rng(13)
     insts = [random_instance(rng) for _ in range(4)]
     present, weight, active = alloc_torch.pad_batch(
         [_carry(i) for i, _ in insts], [a for _, a in insts])
     stats = {}
-    alloc_torch.maxmin_yields_batch(*_tensors(present, weight, active),
-                                    stats=stats)
-    # one loop test per round plus the final one
-    assert stats["host_syncs"] == stats["rounds"] + 1
+    y = alloc_torch.maxmin_yields_batch(*_tensors(present, weight, active),
+                                        stats=stats)
+    y_plain, rounds = ops.maxmin_solve(*_tensors(present, weight, active))
+    assert torch.equal(y, y_plain)
+    assert stats["host_syncs"] == 1
+    assert stats["rounds"] == int(rounds.max())
+    assert stats["rounds"] == max(_reference_rounds(present, weight, active))
     assert stats["rounds"] <= int(active.sum(axis=1).max()) + 1
+
+
+@pytest.mark.parametrize("N, W, route", [
+    (128, 32, "shared"), (128, 64, "shared"), (128, 128, "shared"),
+    (128, 256, "global"), (16, 1024, "shared"), (1024, 64, "global"),
+    (4, 0, "shared")])
+def test_solve_route_by_shape(N, W, route):
+    """The tile route takes a lane whose weights (odd row stride) and the
+    rest fit in 200 KB of shared memory; a larger lane reads its weights
+    from global memory."""
+    present = torch.zeros((2, N, W), dtype=torch.bool)
+    weight = torch.zeros((2, N, W), dtype=torch.float64)
+    active = torch.zeros((2, W), dtype=torch.bool)
+    assert solve_route(present, weight, active) == route
+    words = -(-W // 32)
+    tile = 8 * (N * (W | 1) + 2 * W + N) + 4 * (N * words + words)
+    assert (tile <= TILE_SMEM_BYTES) == (route == "shared")
+
+
+def test_solve_cuda_refuses_bad_inputs():
+    present = torch.zeros((2, 3, 4), dtype=torch.bool)
+    weight = torch.zeros((2, 3, 4), dtype=torch.float64)
+    active = torch.zeros((2, 4), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        maxmin_solve_cuda(present, weight, active)
+    with pytest.raises(TypeError):
+        maxmin_solve_cuda(present, weight.float(), active)
+    with pytest.raises(TypeError):
+        maxmin_solve_cuda(present.to(torch.uint8), weight, active)
+    with pytest.raises(ValueError, match="not \\(B, N, W\\)"):
+        maxmin_solve_cuda(present, weight, active[:, :3])
+    with pytest.raises(ValueError, match="at most"):
+        big = torch.zeros((1, 9000, 1), dtype=torch.float64)
+        maxmin_solve_cuda(big.bool(), big, torch.zeros((1, 1), dtype=bool))
 
 
 # --------------------------------------------------------------------------- #

@@ -4,7 +4,8 @@ The plain PyTorch version (what a CPU tensor runs) must equal the JAX
 oracle ``alloc_matvec_ref``, the Pallas kernel in interpret mode and the
 sequential numpy CSR matvec exactly, including the empty-width case.  The
 CUDA wrappers must refuse CPU tensors, and the device dispatch must send
-CPU tensors to the plain version without counting a kernel launch.
+CPU tensors to the plain versions (the matvec's and the OPT=MIN solve's)
+without counting a kernel launch.
 """
 import numpy as np
 import pytest
@@ -19,7 +20,8 @@ from repro.kernels.alloc_matvec import alloc_matvec, alloc_matvec_ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.alloc_matvec import (alloc_matvec_cuda,
                                               alloc_matvec_plain)
-from repro_torch.kernels.maxmin_round import maxmin_round_cuda
+from repro_torch.kernels.maxmin_solve import (maxmin_solve_cuda,
+                                              maxmin_solve_plain)
 
 
 def _x64():
@@ -86,11 +88,18 @@ def test_ops_dispatch_cpu_runs_plain_without_counting():
     rng = np.random.default_rng(9)
     weight = torch.from_numpy(rng.random((3, 6, 10)))
     x = torch.from_numpy(rng.random((3, 10)))
+    present = weight > 0.5
+    weight = torch.where(present, weight, torch.zeros_like(weight))
+    active = torch.from_numpy(rng.random((3, 10)) < 0.8)
     ops.reset_launches()
     got = ops.alloc_matvec(weight, x)
     assert torch.equal(got, alloc_matvec_plain(weight, x))
-    assert ops.launches["alloc_matvec"] == ops.launches["maxmin_round"] == 0
+    y, rounds = ops.maxmin_solve(present, weight, active)
+    y_plain, rounds_plain = maxmin_solve_plain(present, weight, active)
+    assert torch.equal(y, y_plain) and torch.equal(rounds, rounds_plain)
+    assert ops.launches["alloc_matvec"] == ops.launches["maxmin_solve"] == 0
     assert all(n == 0 for n in ops.launches.values())
+    assert not any(ops.routes.values())
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -98,9 +107,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros((2, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         alloc_matvec_cuda(w, x)
-    f = torch.zeros((2, 3), dtype=torch.float64)
     present = torch.zeros((2, 3, 4), dtype=torch.bool)
-    frozen = torch.zeros((2, 4), dtype=torch.bool)
-    live = torch.ones(2, dtype=torch.bool)
+    active = torch.ones((2, 4), dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA"):
-        maxmin_round_cuda(f, f, present, frozen, x, live)
+        maxmin_solve_cuda(present, w, active)

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and
-its device entry points run on the card unless told otherwise."""
+"""The port stands alone: it imports neither jax nor the JAX package (nor
+do ``chip_smoke.py`` and ``ab_alloc.py``), and its device entry points run
+on the card unless told otherwise."""
 import json
 import os
 import pathlib
@@ -31,7 +32,8 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import runpy
-runpy.run_path(sys.argv[1], run_name="chip_smoke_probe")
+for path in sys.argv[1:]:
+    runpy.run_path(path, run_name="chip_smoke_probe")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -42,7 +44,8 @@ print(json.dumps({"modules": mods, "bad": bad}))
 def test_port_and_chip_smoke_import_no_jax_or_reference():
     src = ROOT / "src"
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py")],
+        [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py"),
+         str(ROOT / "ab_alloc.py")],
         capture_output=True, text=True, timeout=120,
         env={**os.environ, "PYTHONPATH": str(src)})
     assert proc.returncode == 0, proc.stderr
@@ -53,6 +56,7 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
                 "models.backbone", "models.convert", "configs",
                 "configs.recurrentgemma_2b", "configs.rwkv6_7b",
                 "kernels.flash_attention", "kernels.rglru_scan",
+                "kernels.maxmin_solve", "kernels.alloc_matvec",
                 "kernels.rwkv6_scan", "train.serve", "launch.serve"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert out["bad"] == []
