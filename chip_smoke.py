@@ -43,12 +43,18 @@ fails ends the run with exit code 1:
                that reach every attention instance and edge (hd 32 to
                256, hdv != hd, a prompt shorter than a key tile, GQA with
                B > 1, decode lengths 0, S - 1, S and past S, groups of 1,
-               4, 10, 32 and 64 heads), each with its route; and at
-               RWKV6-7B's (a decode step of 4 slots, a prefill of 2,000
-               tokens, a ragged dk != dv, decays down to 1e-3 over 2,000
-               steps, the state written in place) (fp32 2e-5, bf16 2e-2,
-               the RG-LRU atol 1e-5 / rtol 1e-4, the WKV atol = rtol =
-               1e-4: the reference's kernel tolerances);
+               4, 10, 32 and 64 heads), each with its route; the RG-LRU
+               scan on both routes (both sides of the threshold, T short
+               of a chunk and ragged against it; the sequential route bit
+               for bit, the chunked one bit for bit against its own plain
+               algorithm); and at RWKV6-7B's (a decode step of 4 slots, a
+               prefill of 2,000 tokens on both routes, fp32 and bf16, both
+               sides of the threshold, a ragged dk != dv, T short of a
+               chunk and ragged against it and its sub-chunks, decays down
+               to 1e-3 and to 1e-6 over 2,000 steps, the state written in
+               place on each route) (fp32 2e-5, bf16 2e-2, the RG-LRU atol
+               1e-5 / rtol 1e-4, the WKV atol = rtol = 1e-4: the
+               reference's kernel tolerances);
 6. model check — per arch at full width, cut in depth, fp32, seeded
                weights drawn on the host: RecurrentGemma-2B one super-block
                deep (RG-LRU, RG-LRU, local attention), prefill of 2,100
@@ -63,7 +69,10 @@ fails ends the run with exit code 1:
                ring; RWKV6-7B (32 layers) with 64; every request must
                finish with finite logits, and the launch counts, zeroed
                just before and read just after, must show every kernel of
-               the arch; then the serve's last wave (its last 4 requests,
+               the arch, with every prefill launch of the RG-LRU scan and
+               of the WKV recurrence on the chunked route and every decode
+               launch on the sequential one; then the serve's last wave
+               (its last 4 requests,
                the served prompts) is replayed on a fresh server under
                ``torch.profiler`` for the card's busy share and kernel time
                by name;
@@ -78,7 +87,12 @@ fails ends the run with exit code 1:
                larger, counting what these inputs need); the attention
                entries also name the instance that ran (its route, the
                ptxas registers and spills of its functions) and split
-               their device time by kernel name.
+               their device time by kernel name; the RG-LRU scan and the
+               WKV recurrence have an entry per route (decode on the
+               sequential route, the median served prompt on the chunked
+               one, with the sequential route's time at that shape
+               beside it), with the ptxas registers and spills of the
+               route's kernel functions.
 
 Then the nvidia-smi line again, the kernels line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -111,7 +125,10 @@ _NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the solve
 # the port's kernels, by the names the profiler gives them
 _PORT_KERNELS = ("alloc_matvec_kernel", "maxmin_solve_kernel", "attn_kernel",
                  "attn_wgmma_kernel", "decode_kernel", "decode_mma_kernel",
-                 "decode_combine_kernel", "rglru_scan_kernel", "wkv6_kernel")
+                 "decode_combine_kernel", "rglru_scan_kernel",
+                 "rglru_chunk_summary_kernel", "rglru_chunk_out_kernel",
+                 "wkv6_kernel", "wkv6_chunk_state_kernel",
+                 "wkv6_chunk_prefix_kernel", "wkv6_chunk_out_kernel")
 
 _OUTCOMES = ("max_stretch", "mean_stretch", "makespan", "underutilization",
              "n_pmtn", "n_mig", "pmtn_per_job", "mig_per_job",
@@ -725,6 +742,8 @@ SERVE_ARCHS = {
            "check_layers": 2, "check_prompt": 1000, "check_seed": 2404,
            "max_new": 64, "seed": 64},
 }
+# the block kind of each recurrence's layers (models/config.py)
+_KIND = {"rglru_scan": "rglru", "wkv6": "rwkv6"}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # the reference's kernel tests
 RGLRU_ATOL, RGLRU_RTOL = 1e-5, 1e-4
 WKV_TOL = 1e-4                                 # atol = rtol
@@ -838,9 +857,8 @@ def decode_check(torch, gen, dt, case):
 
 
 def phase_serve_kernels(torch):
-    from repro_torch.kernels.rglru_scan import (linear_recurrence_plain,
-                                                rglru_scan_cuda)
-    from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
+    from repro_torch.kernels import rglru_scan as rglru
+    from repro_torch.kernels import rwkv6_scan as rwkv
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
@@ -901,34 +919,67 @@ def phase_serve_kernels(torch):
             ("one_split", 64, 256, 32, 8, 128, 128, bf,
              list(range(0, 640, 10)))]:
         checks.append(decode_check(torch, gen, bf, case))
-    for B, T, W in [(4, 1, 2560), (1, 2100, 2560), (2, 37, 100)]:
+    # (B, T, W, route: None for the one rglru_route picks)
+    rt = rglru.CHUNKED_MIN_T
+    for B, T, W, route in [
+            (4, 1, 2560, None), (1, 2100, 2560, None),
+            (1, 2100, 2560, "sequential"), (2, 37, 100, None),
+            (2, 37, 100, "chunked"), (2, 20, 100, "chunked"),
+            (1, rt - 1, 2560, None), (1, rt, 2560, None),
+            (2, 0, 64, "chunked")]:
         a = torch.sigmoid(_randn(torch, gen, (B, T, W), torch.float32)) * 0.9
         b = _randn(torch, gen, (B, T, W), torch.float32)
         h0 = _randn(torch, gen, (B, W), torch.float32)
-        h, hT = rglru_scan_cuda(a, b, h0)
-        hp, hTp = linear_recurrence_plain(a, b, h0)
+        taken = route or rglru.rglru_route(B, T, W)
+        h, hT = rglru.rglru_scan_cuda(a, b, h0, route=route)
+        hp, hTp = rglru.linear_recurrence_plain(a, b, h0)
+        hc, hTc = rglru.linear_recurrence_chunked_plain(a, b, h0)
         torch.cuda.synchronize()
+        bit_equal = bool(torch.equal(h, hp) and torch.equal(hT, hTp))
+        chunked_equal = bool(torch.equal(h, hc) and torch.equal(hT, hTc))
         checks.append({"kernel": "rglru_scan", "shape": [B, T, W],
+                       "route": taken,
                        "max_abs_err": max(_err(h, hp), _err(hT, hTp)),
-                       "bit_equal": bool(torch.equal(h, hp)
-                                         and torch.equal(hT, hTp)),
+                       "bit_equal": bit_equal,
+                       "bit_equal_chunked_plain": chunked_equal,
+                       # sequential: bit for bit; chunked: the reference's
+                       # tolerance, and bit for bit against its algorithm
                        "ok": _within(torch, h, hp, RGLRU_ATOL, RGLRU_RTOL)
-                       and _within(torch, hT, hTp, RGLRU_ATOL, RGLRU_RTOL)})
-    # (label, B, T, H, dk, dv, r/k/v dtype, lowest decay)
-    for label, B, T, H, dk, dv, dt, w_low in [
-            ("rwkv6_decode", 4, 1, 64, 64, 64, torch.bfloat16, 0.9),
-            ("rwkv6_prefill", 1, 2000, 64, 64, 64, torch.bfloat16, 0.9),
-            ("rwkv6_prefill", 1, 2000, 64, 64, 64, torch.float32, 0.9),
-            ("ragged", 2, 37, 3, 32, 48, torch.float32, 0.45),
-            ("strong_decay", 1, 2000, 64, 64, 64, torch.float32, 1e-3)]:
+                       and _within(torch, hT, hTp, RGLRU_ATOL, RGLRU_RTOL)
+                       and (bit_equal if taken == "sequential"
+                            else chunked_equal)})
+    # (label, B, T, H, dk, dv, r/k/v dtype, lowest decay, route: None for
+    # the one wkv6_route picks)
+    wt = rwkv.CHUNKED_MIN_T
+    for label, B, T, H, dk, dv, dt, w_low, route in [
+            ("rwkv6_decode", 4, 1, 64, 64, 64, torch.bfloat16, 0.9, None),
+            ("rwkv6_prefill", 1, 2000, 64, 64, 64, torch.bfloat16, 0.9, None),
+            ("rwkv6_prefill", 1, 2000, 64, 64, 64, torch.float32, 0.9, None),
+            ("rwkv6_prefill", 1, 2000, 64, 64, 64, torch.bfloat16, 0.9,
+             "sequential"),
+            ("ragged", 2, 37, 3, 32, 48, torch.float32, 0.45, None),
+            ("ragged_short", 2, 37, 3, 32, 48, torch.float32, 0.45,
+             "chunked"),
+            ("ragged_long", 2, 100, 3, 32, 48, torch.bfloat16, 0.45, None),
+            ("below_threshold", 1, wt - 1, 64, 64, 64, torch.bfloat16, 0.9,
+             None),
+            ("at_threshold", 1, wt, 64, 64, 64, torch.bfloat16, 0.9, None),
+            ("strong_decay", 1, 2000, 64, 64, 64, torch.float32, 1e-3, None),
+            ("strong_decay", 1, 2000, 64, 64, 64, torch.float32, 1e-3,
+             "sequential"),
+            ("decay_1e-6", 1, 2000, 64, 64, 64, torch.float32, 1e-6, None),
+            ("decay_1e-6", 1, 2000, 64, 64, 64, torch.bfloat16, 1e-6,
+             None)]:
         args = wkv6_inputs(torch, gen, B, T, H, dk, dv, dt, w_low)
-        y, sT = wkv6_cuda(*args)
-        yp, sTp = wkv6_plain(*args)
+        taken = route or rwkv.wkv6_route(B, T, H, dk, dv)
+        y, sT = rwkv.wkv6_cuda(*args, route=route)
+        yp, sTp = rwkv.wkv6_plain(*args)
         state = args[5].clone()              # a serving slot's state
-        y2, _ = wkv6_cuda(*args[:5], state, state_out=state)
+        y2, _ = rwkv.wkv6_cuda(*args[:5], state, state_out=state,
+                               route=route)
         torch.cuda.synchronize()
         finite = bool(torch.isfinite(y).all() and torch.isfinite(sT).all())
-        checks.append({"kernel": "wkv6", "case": label,
+        checks.append({"kernel": "wkv6", "case": label, "route": taken,
                        "dtype": _dtype_name(torch, dt),
                        "shape": [B, T, H, dk, dv], "lowest_decay": w_low,
                        "max_abs_err": max(_err(y, yp), _err(sT, sTp)),
@@ -940,14 +991,18 @@ def phase_serve_kernels(torch):
                        and _within(torch, sT, sTp, WKV_TOL, WKV_TOL)
                        and bool(torch.equal(y2, y)
                                 and torch.equal(state, sT))})
-    ok = all(c["ok"] for c in checks)
+    routes = {k: {c["route"] for c in checks if c["kernel"] == k}
+              for k in ("rglru_scan", "wkv6")}
+    ok = all(c["ok"] for c in checks) and all(
+        v == {"sequential", "chunked"} for v in routes.values())
     emit({"phase": "serve kernels", "ok": ok,
           "tolerance": {"float32": TOL["float32"], "bfloat16": TOL["bfloat16"],
                         "rglru_scan": [RGLRU_ATOL, RGLRU_RTOL],
                         "wkv6": [WKV_TOL, WKV_TOL]},
           "checks": checks})
     if not ok:
-        raise PhaseFailed("a serving kernel disagrees with its plain version")
+        raise PhaseFailed("a serving kernel disagrees with its plain version "
+                          "or a route of a recurrence went unchecked")
 
 
 def phase_model_check(torch, np, arch):
@@ -991,6 +1046,8 @@ def phase_model_check(torch, np, arch):
     ops.reset_launches()
     card_logits, _, card_s = run(card, "cuda", feed)
     launches = {k: ops.launches[k] for k in spec["kernels"]}
+    routes = {k: dict(ops.routes[k]) for k in spec["kernels"]
+              if k in ops.routes}
     diffs = [float((c - h).abs().max())
              for c, h in zip(card_logits, host_logits)]
     within = all(bool(((c - h).abs() <= MODEL_TOL + MODEL_TOL * h.abs()).all())
@@ -1006,6 +1063,7 @@ def phase_model_check(torch, np, arch):
           "tolerance": {"atol": MODEL_TOL, "rtol": MODEL_TOL},
           "max_abs_logit_diff": diffs, "greedy_agree": agree,
           "greedy_total": len(card_logits), "launches": launches,
+          "routes": routes,
           "init_s": init_s, "host_s": host_s, "card_s": card_s})
     if not ok:
         raise PhaseFailed("the card's logits disagree with the host's")
@@ -1030,6 +1088,7 @@ def phase_serve(torch, np, arch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import backbone
+    from repro_torch.models.config import layer_plan
     from repro_torch.train.serve import BatchedServer, Request, ServeConfig
 
     class TimedServer(BatchedServer):
@@ -1039,7 +1098,7 @@ def phase_serve(torch, np, arch):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.prefill_s = self.decode_s = 0.0
-            self.prefill_tokens = self.decode_steps = 0
+            self.prefills = self.prefill_tokens = self.decode_steps = 0
             self.finite = True
 
         def _timed(self, fn, *args):
@@ -1053,6 +1112,7 @@ def phase_serve(torch, np, arch):
             logits, caches, dt = self._timed(super()._prefill_impl, tokens,
                                              caches_slot, true_len)
             self.prefill_s += dt
+            self.prefills += 1
             self.prefill_tokens += true_len
             return logits, caches
 
@@ -1094,6 +1154,16 @@ def phase_serve(torch, np, arch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: ops.launches[k] for k in spec["kernels"]}
+    # a recurrence runs once a layer of its kind a call: every prefill on
+    # the chunked route, every decode step on the sequential one
+    routes = {k: dict(ops.routes[k]) for k in spec["kernels"]
+              if k in ops.routes}
+    per_call = {k: sum(b.kind == _KIND[k] for b in layer_plan(cfg))
+                for k in routes}
+    routes_ok = all(
+        routes[k] == {"chunked": srv.prefills * per_call[k],
+                      "sequential": srv.decode_steps * per_call[k]}
+        for k in routes)
     peak = torch.cuda.max_memory_allocated()
     last_pos = [len(r.prompt) + len(r.out) - 2 for r in reqs]
     # the ring must wrap where the arch has a window
@@ -1127,7 +1197,7 @@ def phase_serve(torch, np, arch):
         srv, torch.zeros(SERVE_SLOTS, dtype=torch.int64, device="cuda"),
         srv.caches, torch.full((SERVE_SLOTS,), SERVE_CACHE // 2,
                                device="cuda")))
-    ok = (finished and srv.finite and wrapped != 0
+    ok = (finished and srv.finite and wrapped != 0 and routes_ok
           and all(v > 0 for v in launches.values()))
     emit({"phase": "serve", "ok": ok, "arch": arch,
           "layers": cfg.n_layers, "params": sum(
@@ -1148,15 +1218,18 @@ def phase_serve(torch, np, arch):
           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
           "init_s": init_s, "weight_bytes": weight_bytes,
           "max_memory_allocated_bytes": peak, "launches": launches,
+          "routes": routes, "prefills": srv.prefills,
+          "layers_per_call": per_call,
           "first_outputs": [r.out[:8] for r in reqs[:2]],
           "traced_window": trace})
     if not ok:
         raise PhaseFailed("a request did not finish, a logit was not "
-                          "finite, no request wrapped the window, or a "
-                          f"kernel of {arch} was not launched")
+                          "finite, no request wrapped the window, a "
+                          f"kernel of {arch} was not launched, or a "
+                          "recurrence ran a call on the wrong route")
     del srv, params
     torch.cuda.empty_cache()
-    return launches, lens
+    return launches, lens, routes
 
 
 def attention_instances(functions, route, q, v_or_cache, G, decode,
@@ -1180,21 +1253,19 @@ def attention_instances(functions, route, q, v_or_cache, G, decode,
     return {"route": route, "functions": found}
 
 
-def serve_kernel_entries(torch, np, launches, prompt_lens, functions,
-                         hgmma):
-    """The kernels line's entries of the serving kernels, each at the shape
-    its path used most (bf16, as served): the median prompt for prefill
-    attention, the four slots at mid-run positions for decode, and the
-    decode step (B = 4, T = 1) for the RG-LRU scan, which launches it most;
-    the scan's prefill shape is reported beside."""
+def serve_kernel_entries(torch, np, launches, prompt_lens, routes,
+                         functions, hgmma, rglru_functions):
+    """The kernels line's entries of RecurrentGemma-2B's kernels, each at
+    the shape its path used (bf16, as served): the median prompt for
+    prefill attention, the four slots at mid-run positions for decode, and
+    the RG-LRU scan per route (:func:`recurrence_entries`)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (
         attention_route, decode_route, flash_attention_cuda,
         flash_attention_plain, flash_decode_cuda, flash_decode_plain)
-    from repro_torch.kernels.rglru_scan import (linear_recurrence_plain,
-                                                rglru_scan_cuda)
+    from repro_torch.kernels import rglru_scan as rglru
 
     cfg = get_config(RG)
     H, Hkv, hd, W, win = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
@@ -1300,45 +1371,29 @@ def serve_kernel_entries(torch, np, launches, prompt_lens, functions,
         "bound_rate": "HBM 3.35 TB/s; bf16 tensor cores 989 TFLOP/s",
     })
 
-    # ---- RG-LRU scan: the decode step, and one prefill beside it ----------
+    # ---- RG-LRU scan: the decode step and the median prompt --------------
     def scan_inputs(B, T):
         a = torch.sigmoid(_randn(torch, gen, (B, T, W), torch.float32)) * 0.9
         return (a, _randn(torch, gen, (B, T, W), torch.float32),
                 _randn(torch, gen, (B, W), torch.float32))
 
-    def scan_bound(B, T):
+    def scan_bound(args):
+        B, T, _ = args[0].shape
         return bound_ms(4 * (3 * B * T * W + 2 * B * W), 2 * B * T * W,
                         FP32_OPS_PER_S)
 
-    a, b, h0 = scan_inputs(SERVE_SLOTS, 1)
-    h, hT = rglru_scan_cuda(a, b, h0)
-    hp, hTp = linear_recurrence_plain(a, b, h0)
-    rg_bound, rg_by = scan_bound(SERVE_SLOTS, 1)
-    pa, pb, ph0 = scan_inputs(1, L)
-    ph, phT = rglru_scan_cuda(pa, pb, ph0)
-    pph, pphT = linear_recurrence_plain(pa, pb, ph0)
-    entries.append({
-        "name": "rglru_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rglru.cu",
-        "wrapper": "src/repro_torch/kernels/rglru_scan.py",
-        "replaces": "src/repro/kernels/rglru_scan.py:63",
-        "launches": launches["rglru_scan"],
-        "shape": [SERVE_SLOTS, 1, W], "dtype": "float32",
-        "max_abs_err": max(_err(h, hp), _err(hT, hTp), _err(ph, pph),
-                           _err(phT, pphT)),
-        "ms": device_ms(torch, lambda: rglru_scan_cuda(a, b, h0), 200),
-        "eager_ms": eager_ms(torch, lambda: rglru_scan_cuda(a, b, h0), 200),
-        "plain_ms": device_ms(torch, lambda: linear_recurrence_plain(
-            a, b, h0), 200),
-        "library": None, "library_ms": None,
-        "bound_ms": rg_bound, "bound_by": rg_by,
-        "prefill": {"shape": [1, L, W],
-                    "ms": device_ms(torch, lambda: rglru_scan_cuda(
-                        pa, pb, ph0), 20),
-                    "plain_ms": device_ms(torch, lambda: (
-                        linear_recurrence_plain(pa, pb, ph0)), 1),
-                    "bound_ms": scan_bound(1, L)[0]},
-    })
+    entries += recurrence_entries(
+        torch, "rglru_scan", rglru.rglru_scan_cuda,
+        rglru.linear_recurrence_plain, rglru.linear_recurrence_chunked_plain,
+        {"sequential": scan_inputs(SERVE_SLOTS, 1),
+         "chunked": scan_inputs(1, L)},
+        routes["rglru_scan"], scan_bound, rglru_functions,
+        {"sequential": ["rglru_scan_kernel"],
+         "chunked": ["rglru_chunk_summary_kernel", "rglru_chunk_out_kernel"]},
+        {"source": "src/repro_torch/kernels/csrc/rglru.cu",
+         "wrapper": "src/repro_torch/kernels/rglru_scan.py",
+         "replaces": "src/repro/kernels/rglru_scan.py:63",
+         "dtype": "float32"})
     tol = {"flash_attention": TOL["bfloat16"], "flash_decode": TOL["bfloat16"],
            "rglru_scan": RGLRU_ATOL}
     ok = all(e["launches"] > 0 and e["max_abs_err"] <= tol[e["name"]]
@@ -1346,50 +1401,89 @@ def serve_kernel_entries(torch, np, launches, prompt_lens, functions,
     return entries, ok
 
 
-def wkv6_entry(torch, np, launches, prompt_lens):
-    """The kernels line's entry of the WKV recurrence at the RWKV6-7B
-    decode step (4 slots, T = 1, bf16 r/k/v), which launches it most, with
-    the prefill of the median served prompt beside it."""
+def recurrence_entries(torch, name, kernel, plain, chunked_plain, inputs,
+                       launches, bound, functions, fragments, fixed):
+    """The kernels line's entries of a recurrence, one a route: the route's
+    launches in the serve, the largest difference from the plain version
+    (and whether the chunked route equals its own plain algorithm bit for
+    bit), device ms of the route and of its plain version, eager ms, the
+    bound, the ptxas registers and spills of the route's kernel functions
+    (``fragments`` of their names); on the chunked route, its device time
+    by kernel name and the sequential route's time at the same shape, in
+    the same call."""
+    out = []
+    for route, args in inputs.items():
+        got = kernel(*args, route=route)
+        want = plain(*args)
+        mine = chunked_plain(*args)
+        torch.cuda.synchronize()
+        iters = 200 if args[0].shape[1] == 1 else 20
+        b_ms, b_by = bound(args)
+        entry = dict(fixed, name=name, route="cuda", instance=route,
+                     launches=launches.get(route, 0),
+                     # (B, T, W), or the WKV's (B, T, H, dk, dv)
+                     shape=list(args[0].shape) + list(
+                         args[2].shape[-1:] if args[0].dim() == 4 else ()),
+                     max_abs_err=max(_err(g, w) for g, w in zip(got, want)),
+                     ptxas=[ptxas_of(functions, f) for f in fragments[route]],
+                     ms=device_ms(torch, lambda: kernel(*args, route=route),
+                                  iters),
+                     eager_ms=eager_ms(torch, lambda: kernel(
+                         *args, route=route), iters),
+                     plain_ms=device_ms(torch, lambda: plain(*args),
+                                        iters if iters > 20 else 1),
+                     library=None, library_ms=None,
+                     bound_ms=b_ms, bound_by=b_by)
+        if route == "chunked":
+            entry["chunked_plain_max_abs_err"] = max(
+                _err(g, w) for g, w in zip(got, mine))
+            entry["device_us_by_kernel"] = device_us_by_kernel(
+                torch, lambda: kernel(*args, route=route), iters)
+            entry["sequential_ms"] = device_ms(
+                torch, lambda: kernel(*args, route="sequential"), iters)
+            entry["faster_than_sequential"] = (entry["ms"]
+                                               < entry["sequential_ms"])
+        out.append(entry)
+    return out
+
+
+def wkv6_entries(torch, np, launches, prompt_lens, routes, functions):
+    """The kernels line's entries of the WKV recurrence, one a route: the
+    RWKV6-7B decode step (4 slots, T = 1, bf16 r/k/v) on the sequential
+    route and the prefill of the median served prompt on the chunked one
+    (:func:`recurrence_entries`)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
+    from repro_torch.kernels import rwkv6_scan as rwkv
 
     cfg = get_config(RWKV)
     H, dk = cfg.n_heads, cfg.rwkv_head_dim
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     L = int(np.median(prompt_lens))
-    dec = wkv6_inputs(torch, gen, SERVE_SLOTS, 1, H, dk, dk, torch.bfloat16,
-                      0.9)
-    pre = wkv6_inputs(torch, gen, 1, L, H, dk, dk, torch.bfloat16, 0.9)
-    errs = []
-    for args in (dec, pre):
-        y, sT = wkv6_cuda(*args)
-        yp, sTp = wkv6_plain(*args)
-        errs += [_err(y, yp), _err(sT, sTp)]
-    dec_bound, dec_by = wkv6_bound(dec[0], dec[2])
-    pre_bound, pre_by = wkv6_bound(pre[0], pre[2])
-    entry = {
-        "name": "wkv6", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
-        "wrapper": "src/repro_torch/kernels/rwkv6_scan.py",
-        "replaces": "src/repro/kernels/rwkv6_scan.py:77",
-        "launches": launches["wkv6"],
-        "shape": [SERVE_SLOTS, 1, H, dk, dk], "dtype": "bfloat16",
-        "max_abs_err": max(errs),
-        "ms": device_ms(torch, lambda: wkv6_cuda(*dec), 200),
-        "eager_ms": eager_ms(torch, lambda: wkv6_cuda(*dec), 200),
-        "plain_ms": device_ms(torch, lambda: wkv6_plain(*dec), 200),
-        "library": None, "library_ms": None,
-        "bound_ms": dec_bound, "bound_by": dec_by,
-        "bound_rate": "HBM 3.35 TB/s; FP32 67 TFLOP/s, 5 flops a (row, "
-                      "column) pair, 3 a row and 2 a column, a step",
-        "prefill": {"shape": [1, L, H, dk, dk],
-                    "ms": device_ms(torch, lambda: wkv6_cuda(*pre), 20),
-                    "plain_ms": device_ms(torch, lambda: wkv6_plain(*pre),
-                                          1),
-                    "bound_ms": pre_bound, "bound_by": pre_by},
-    }
-    return entry, entry["launches"] > 0 and entry["max_abs_err"] <= WKV_TOL
+    bf = "13__nv_bfloat16"
+    entries = recurrence_entries(
+        torch, "wkv6", rwkv.wkv6_cuda, rwkv.wkv6_plain,
+        rwkv.wkv6_chunked_plain,
+        {"sequential": wkv6_inputs(torch, gen, SERVE_SLOTS, 1, H, dk, dk,
+                                   torch.bfloat16, 0.9),
+         "chunked": wkv6_inputs(torch, gen, 1, L, H, dk, dk, torch.bfloat16,
+                                0.9)},
+        routes["wkv6"], lambda args: wkv6_bound(args[0], args[2]), functions,
+        # the 32-column tile with 16 rows a lane at dk = 64 (csrc/wkv6.cu
+        # picks it for 4 slots of 64 heads); the chunked route's three
+        {"sequential": [f"wkv6_kernelI{bf}Li16ELi32E"],
+         "chunked": [f"wkv6_chunk_state_kernelI{bf}E",
+                     "wkv6_chunk_prefix_kernel",
+                     f"wkv6_chunk_out_kernelI{bf}E"]},
+        {"source": "src/repro_torch/kernels/csrc/wkv6.cu",
+         "wrapper": "src/repro_torch/kernels/rwkv6_scan.py",
+         "replaces": "src/repro/kernels/rwkv6_scan.py:77",
+         "dtype": "bfloat16",
+         "bound_rate": "HBM 3.35 TB/s; FP32 67 TFLOP/s, 5 flops a (row, "
+                       "column) pair, 3 a row and 2 a column, a step"})
+    ok = all(e["launches"] > 0 and e["max_abs_err"] <= WKV_TOL
+             for e in entries)
+    return entries, ok
 
 
 def phase_kernel_line(torch, np, launches, stats, functions):
@@ -1516,9 +1610,11 @@ def main() -> int:
         alloc_entries, alloc_ok = phase_kernel_line(
             torch, np, launches, stats, libraries["alloc"]["ptxas"])
         serve_entries, serve_ok = serve_kernel_entries(
-            torch, np, *served[RG], libraries["attention"]["ptxas"], hgmma)
-        wkv, wkv_ok = wkv6_entry(torch, np, *served[RWKV])
-        line = {"kernels": alloc_entries + serve_entries + [wkv]}
+            torch, np, *served[RG], libraries["attention"]["ptxas"], hgmma,
+            libraries["rglru"]["ptxas"])
+        wkv, wkv_ok = wkv6_entries(torch, np, *served[RWKV],
+                                   libraries["wkv6"]["ptxas"])
+        line = {"kernels": alloc_entries + serve_entries + wkv}
         ok = alloc_ok and serve_ok and wkv_ok
     except Exception as exc:  # noqa: BLE001 — reported, then a failing exit
         traceback.print_exc()

@@ -51,10 +51,14 @@ LIBRARIES = {
     }),
     "rglru": (_CSRC / "rglru.cu", _COMMON, {
         "repro_rglru_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "repro_rglru_scan_chunked_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                         _I, _P],
     }),
     "wkv6": (_CSRC / "wkv6.cu", _COMMON, {
         "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P],
+        "repro_wkv6_chunked": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _P],
     }),
 }
 

@@ -22,8 +22,8 @@ from .alloc_matvec import alloc_matvec_cuda, alloc_matvec_plain
 from .flash_attention import (flash_attention_cuda, flash_attention_plain,
                               flash_decode_cuda, flash_decode_plain)
 from .maxmin_solve import maxmin_solve_cuda, maxmin_solve_plain, solve_route
-from .rglru_scan import linear_recurrence_plain, rglru_scan_cuda
-from .rwkv6_scan import wkv6_cuda, wkv6_plain
+from .rglru_scan import linear_recurrence_plain, rglru_route, rglru_scan_cuda
+from .rwkv6_scan import wkv6_cuda, wkv6_plain, wkv6_route
 
 __all__ = ["alloc_matvec", "maxmin_solve", "flash_attention", "flash_decode",
            "linear_recurrence", "wkv6", "launches", "routes",
@@ -34,7 +34,8 @@ launches: Dict[str, int] = {"alloc_matvec": 0, "maxmin_solve": 0,
                             "flash_attention": 0, "flash_decode": 0,
                             "rglru_scan": 0, "wkv6": 0}
 #: launches by the instance taken, since the last reset
-routes: Dict[str, Counter] = {"maxmin_solve": Counter()}
+routes: Dict[str, Counter] = {"maxmin_solve": Counter(),
+                              "rglru_scan": Counter(), "wkv6": Counter()}
 
 
 def reset_launches() -> None:
@@ -100,11 +101,13 @@ def flash_decode(q, k_cache, v_cache, cur_len, *,
 
 def linear_recurrence(a, b, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RG-LRU recurrence (see ``kernels/rglru_scan.py``).  Unlike the
-    reference, which sends ``T == 1`` to its oracle, the card launches the
-    kernel for every T, decode's single step included."""
+    reference, which sends ``T == 1`` to its oracle, the card launches a
+    kernel for every T, decode's single step included: the route
+    (``rglru_route``) is chunked for a prefill, sequential otherwise."""
     if _on_cuda(a):
         out = rglru_scan_cuda(a, b, h0)
         launches["rglru_scan"] += 1
+        routes["rglru_scan"][rglru_route(*a.shape)] += 1
         return out
     return linear_recurrence_plain(a, b, h0)
 
@@ -113,10 +116,12 @@ def wkv6(r, k, v, w, u, s0, *, state_out: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RWKV6 WKV recurrence (see ``kernels/rwkv6_scan.py``); sT goes
     to ``state_out`` when given (it may be ``s0``).  Unlike the reference,
-    which sends ``T == 1`` to its oracle, the card launches the kernel for
-    every T, decode's single step included."""
+    which sends ``T == 1`` to its oracle, the card launches a kernel for
+    every T, decode's single step included: the route (``wkv6_route``) is
+    chunked for a prefill, sequential otherwise."""
     if _on_cuda(r):
         out = wkv6_cuda(r, k, v, w, u, s0, state_out=state_out)
         launches["wkv6"] += 1
+        routes["wkv6"][wkv6_route(*r.shape, v.shape[-1])] += 1
         return out
     return wkv6_plain(r, k, v, w, u, s0, state_out=state_out)

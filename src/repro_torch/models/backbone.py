@@ -76,28 +76,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # =========================================================================== #
 # caches                                                                       #
 # =========================================================================== #
+def _block_cache(cfg: ModelConfig, spec: BlockSpec, B: int, S: int, dtype,
+                 device) -> Dict[str, torch.Tensor]:
+    """One layer's ``mix`` cache.  The int8 layout exists for attention KV
+    only: recurrent caches stay bf16 under an int8 request, as the
+    reference's ``_block_cache`` keeps them (the port's ``attn_cache``
+    raises for int8: that layout is a later slice)."""
+    alt = torch.bfloat16 if dtype == torch.int8 else dtype
+    if spec.kind == ATTN:
+        return blocks.attn_cache(cfg, B, S, dtype, device)
+    if spec.kind == LOCAL_ATTN:
+        return blocks.attn_cache(cfg, B, min(S, cfg.window), dtype, device)
+    if spec.kind == RWKV6:
+        return blocks.rwkv6_cache(cfg, B, S, alt, device)
+    if spec.kind == RGLRU:
+        return blocks.rglru_cache(cfg, B, S, alt, device)
+    raise blocks.not_ported(spec.kind)
+
+
 def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16,
                device="cuda") -> List[Dict[str, Dict[str, torch.Tensor]]]:
     """Decode caches, one ``{"mix": ...}`` dict per layer in plan order.
     bf16 by default, as the reference; the RG-LRU state ``h`` and the RWKV6
-    state ``s`` stay fp32.
+    state ``s`` stay fp32, and an int8 request keeps the other recurrent
+    caches bf16 (:func:`_block_cache`).
     A local-attention layer's cache is its window, ``min(S, window)``."""
     device = resolve_device(device)
     _check_served(cfg)
-    out = []
-    for spec in layer_plan(cfg):
-        if spec.kind == ATTN:
-            mix = blocks.attn_cache(cfg, B, S, dtype, device)
-        elif spec.kind == LOCAL_ATTN:
-            mix = blocks.attn_cache(cfg, B, min(S, cfg.window), dtype, device)
-        elif spec.kind == RWKV6:
-            mix = blocks.rwkv6_cache(cfg, B, S, dtype, device)
-        elif spec.kind == RGLRU:
-            mix = blocks.rglru_cache(cfg, B, S, dtype, device)
-        else:
-            raise blocks.not_ported(spec.kind)
-        out.append({"mix": mix})
-    return out
+    return [{"mix": _block_cache(cfg, spec, B, S, dtype, device)}
+            for spec in layer_plan(cfg)]
 
 
 def slot_view(caches, slot: int):

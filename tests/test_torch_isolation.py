@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor the JAX package (nor
-do ``chip_smoke.py`` and ``ab_alloc.py``), and its device entry points run
-on the card unless told otherwise."""
+do ``chip_smoke.py``, ``ab_alloc.py`` and ``ab_prefill.py``), and its
+device entry points run on the card unless told otherwise."""
 import json
 import os
 import pathlib
@@ -31,6 +31,10 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
+from repro_torch.kernels.rglru_scan import (  # noqa: F401
+    linear_recurrence_chunked_plain, rglru_route)
+from repro_torch.kernels.rwkv6_scan import (  # noqa: F401
+    wkv6_chunked_plain, wkv6_route)
 import runpy
 for path in sys.argv[1:]:
     runpy.run_path(path, run_name="chip_smoke_probe")
@@ -45,7 +49,7 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
     src = ROOT / "src"
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py"),
-         str(ROOT / "ab_alloc.py")],
+         str(ROOT / "ab_alloc.py"), str(ROOT / "ab_prefill.py")],
         capture_output=True, text=True, timeout=120,
         env={**os.environ, "PYTHONPATH": str(src)})
     assert proc.returncode == 0, proc.stderr

@@ -6,6 +6,10 @@ must agree with the JAX package's Pallas ``rglru_scan`` in interpret mode
 ``linear_recurrence_ref`` (an associative scan).  The three round in
 different orders, so they agree within the reference's own kernel
 tolerance (``tests/test_kernels.py``: atol 1e-5, rtol 1e-4).
+
+``linear_recurrence_chunked_plain`` (the card's chunked route, off every
+path) is held to the oracle and the sequential loop within the same
+tolerance, with decays near 1, where carries cross many chunks.
 """
 import numpy as np
 import pytest
@@ -18,8 +22,9 @@ from repro.kernels import ref  # noqa: E402
 from repro.kernels.rglru_scan import rglru_scan  # noqa: E402
 
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.rglru_scan import (linear_recurrence_plain,  # noqa: E402
-                                            rglru_scan_cuda)
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    CHUNK, CHUNKED_MIN_T, linear_recurrence_chunked_plain,
+    linear_recurrence_plain, rglru_route, rglru_scan_cuda)
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -97,3 +102,68 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     a, b, h0 = (torch.from_numpy(x) for x in _inputs(11, 1, 4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         rglru_scan_cuda(a, b, h0)
+
+
+def _slow_inputs(seed, B, T, W):
+    """As :func:`_inputs`, with a in [0.99, 1): carries cross chunks."""
+    _, b, h0 = _inputs(seed, B, T, W)
+    a = np.random.default_rng(seed + 1).uniform(0.99, 1.0, (B, T, W)).astype(
+        np.float32)
+    return a, b, h0
+
+
+@pytest.mark.parametrize("B,T,W,slow", [
+    (1, 500, 64, False),
+    (1, 600, 64, True),       # decays near 1
+    (2, 100, 48, True),       # ragged: T % CHUNK != 0
+    (1, 20, 16, True),        # T < CHUNK
+    (3, 1, 8, False),         # one step
+    (2, 96, 130, True),       # whole chunks
+])
+def test_linear_recurrence_chunked_plain_matches_jax(B, T, W, slow):
+    a, b, h0 = (_slow_inputs if slow else _inputs)(T + W, B, T, W)
+    h, hT = linear_recurrence_chunked_plain(
+        *(torch.from_numpy(x) for x in (a, b, h0)))
+    assert h.dtype == torch.float32 and h.shape == (B, T, W)
+    assert hT.shape == (B, W)
+    h_r, hT_r = ref.linear_recurrence_ref(*(jnp.asarray(x) for x in (a, b,
+                                                                     h0)))
+    _close(h.numpy(), h_r)
+    _close(hT.numpy(), hT_r)
+    h_p, hT_p = linear_recurrence_plain(*(torch.from_numpy(x)
+                                          for x in (a, b, h0)))
+    _close(h.numpy(), h_p.numpy())
+    _close(hT.numpy(), hT_p.numpy())
+
+
+def test_linear_recurrence_chunked_plain_empty_sequence_keeps_the_carry():
+    a, b, h0 = _inputs(12, 2, 0, 16)
+    h, hT = linear_recurrence_chunked_plain(
+        *(torch.from_numpy(x) for x in (a, b, h0)))
+    assert h.shape == (2, 0, 16)
+    assert torch.equal(hT, torch.from_numpy(h0))
+
+
+def test_linear_recurrence_chunked_plain_state_chaining():
+    """Two calls split off a chunk boundary, the carry passed on, equal one
+    oracle run over the whole sequence."""
+    a, b, h0 = _slow_inputs(13, 1, 150, 32)
+    ta, tb, th = (torch.from_numpy(x) for x in (a, b, h0))
+    h1, s1 = linear_recurrence_chunked_plain(ta[:, :70], tb[:, :70], th)
+    h2, s2 = linear_recurrence_chunked_plain(ta[:, 70:], tb[:, 70:], s1)
+    h_r, hT_r = ref.linear_recurrence_ref(*(jnp.asarray(x) for x in (a, b,
+                                                                     h0)))
+    _close(torch.cat([h1, h2], 1).numpy(), h_r)
+    _close(s2.numpy(), hT_r)
+
+
+@pytest.mark.parametrize("T,route", [
+    (1, "sequential"),                       # decode
+    (CHUNKED_MIN_T - 1, "sequential"),
+    (CHUNKED_MIN_T, "chunked"),
+    (1374, "chunked"),                       # a RecurrentGemma-2B prefill
+])
+def test_rglru_route(T, route):
+    assert CHUNK == 32
+    for B, W in ((1, 2560), (4, 2560), (2, 100)):
+        assert rglru_route(B, T, W) == route

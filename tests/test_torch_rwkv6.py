@@ -7,6 +7,10 @@ sum over dk in different orders, so they agree within the reference's own
 kernel tolerance (``tests/test_kernels.py``: atol = rtol = 1e-4).  Inputs
 are drawn with numpy, as in the reference's tests: r, k, v, u in
 [-0.5, 0.5), w in (0.45, 0.95), s0 in [-0.1, 0.1).
+
+``wkv6_chunked_plain`` (the card's chunked route, off every path) is held
+to the oracle and to the sequential loop within the same tolerance, with
+decays down to 1e-6, where the reference's own chunked form overflows.
 """
 import numpy as np
 import pytest
@@ -19,7 +23,9 @@ from repro.kernels import ref  # noqa: E402
 from repro.kernels.rwkv6_scan import wkv6 as pallas_wkv6  # noqa: E402
 
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (CHUNK, CHUNKED_MIN_T,  # noqa: E402
+                                            wkv6_chunked_plain, wkv6_cuda,
+                                            wkv6_plain, wkv6_route)
 
 TOL = 1e-4
 
@@ -143,3 +149,104 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     arrays = _torch(*_inputs(11, 1, 4, 2, 16, 16))
     with pytest.raises(ValueError, match="CUDA"):
         wkv6_cuda(*arrays)
+
+
+def _decay_inputs(seed, B, T, H, dk, dv, w_low):
+    """As :func:`_inputs`, with w uniform in [w_low, 1)."""
+    r, k, v, _, u, s0 = _inputs(seed, B, T, H, dk, dv)
+    w = np.random.default_rng(seed + 1).uniform(w_low, 1.0, r.shape).astype(
+        np.float32)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("B,T,H,dk,dv,w_low", [
+    (1, 500, 2, 64, 64, 1e-3),      # strong decays, T >= 500
+    (1, 600, 2, 64, 64, 1e-6),      # decays down to 1e-6
+    (2, 100, 3, 32, 48, 0.45),      # ragged: T % 64 and T % 16 != 0, dk != dv
+    (1, 37, 2, 16, 16, 0.45),       # T < CHUNK
+    (3, 1, 2, 8, 8, 0.9),           # one step
+    (1, 128, 2, 64, 64, 0.9),       # whole chunks
+])
+def test_wkv6_chunked_plain_matches_jax(B, T, H, dk, dv, w_low):
+    arrays = _decay_inputs(T + dk + dv, B, T, H, dk, dv, w_low)
+    y, sT = wkv6_chunked_plain(*_torch(*arrays))
+    assert y.dtype == sT.dtype == torch.float32
+    assert y.shape == (B, T, H, dv) and sT.shape == (B, H, dk, dv)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(sT).all())
+    y_r, s_r = ref.wkv6_ref(*(jnp.asarray(a) for a in arrays))
+    _close(y, y_r)
+    _close(sT, s_r)
+    y_p, s_p = wkv6_plain(*_torch(*arrays))
+    _close(y, y_p)
+    _close(sT, s_p)
+
+
+def test_wkv6_chunked_plain_bf16_inputs_match_jax():
+    r, k, v, w, u, s0 = _decay_inputs(12, 2, 150, 2, 64, 64, 1e-3)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (r, k, v)]
+    y, sT = wkv6_chunked_plain(*tb, *_torch(w, u, s0))
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (r, k, v)]
+    y_r, s_r = ref.wkv6_ref(*jb, *(jnp.asarray(a) for a in (w, u, s0)))
+    _close(y, y_r)
+    _close(sT, s_r)
+
+
+def test_wkv6_chunked_plain_empty_sequence_keeps_the_state():
+    r, k, v, w, u, s0 = _torch(*_inputs(13, 2, 0, 3, 16, 8))
+    y, sT = wkv6_chunked_plain(r, k, v, w, u, s0)
+    assert y.shape == (2, 0, 3, 8)
+    assert torch.equal(sT, s0)
+
+
+def test_wkv6_chunked_plain_state_chaining():
+    """Two calls split off a chunk boundary, the state carried, equal one
+    oracle run over the whole sequence."""
+    arrays = _decay_inputs(14, 1, 170, 2, 32, 32, 1e-3)
+    r, k, v, w, u, s0 = _torch(*arrays)
+    h = 100
+    y1, s1 = wkv6_chunked_plain(r[:, :h], k[:, :h], v[:, :h], w[:, :h], u,
+                                s0)
+    y2, s2 = wkv6_chunked_plain(r[:, h:], k[:, h:], v[:, h:], w[:, h:], u,
+                                s1)
+    y_r, s_r = ref.wkv6_ref(*(jnp.asarray(a) for a in arrays))
+    _close(torch.cat([y1, y2], 1), y_r)
+    _close(s2, s_r)
+
+
+def test_wkv6_chunked_plain_writes_the_state_in_place():
+    r, k, v, w, u, s0 = _torch(*_inputs(15, 2, 70, 2, 16, 16))
+    y_want, s_want = wkv6_chunked_plain(r, k, v, w, u, s0.clone())
+    state = s0.clone()
+    y, sT = wkv6_chunked_plain(r, k, v, w, u, state, state_out=state)
+    assert sT is state
+    assert torch.equal(state, s_want) and torch.equal(y, y_want)
+
+
+@pytest.mark.parametrize("T,dk,dv,route", [
+    (1, 64, 64, "sequential"),                   # decode
+    (CHUNKED_MIN_T - 1, 64, 64, "sequential"),
+    (CHUNKED_MIN_T, 64, 64, "chunked"),
+    (1428, 64, 64, "chunked"),                   # an RWKV6-7B prefill
+    (1428, 32, 48, "chunked"),
+    (1428, 128, 64, "sequential"),               # past the chunked tiles
+    (1428, 64, 96, "sequential"),
+    (1428, 20, 64, "sequential"),                # rows of partial loads
+    (1428, 64, 36, "sequential"),
+])
+def test_wkv6_route(T, dk, dv, route):
+    assert CHUNK == 64
+    for B, H in ((1, 64), (4, 64), (2, 3)):
+        assert wkv6_route(B, T, H, dk, dv) == route
+
+
+def test_routes_are_counted_and_reset():
+    """The route counters of the two recurrences sit beside the solve's,
+    start empty, and :func:`ops.reset_launches` clears them; CPU tensors
+    count nothing."""
+    assert set(ops.routes) == {"maxmin_solve", "rglru_scan", "wkv6"}
+    ops.routes["wkv6"]["chunked"] += 3
+    ops.routes["rglru_scan"]["sequential"] += 1
+    ops.reset_launches()
+    assert all(not c for c in ops.routes.values())
+    ops.wkv6(*_torch(*_inputs(16, 1, 80, 2, 16, 16)))
+    assert not ops.routes["wkv6"] and ops.launches["wkv6"] == 0

@@ -202,6 +202,60 @@ def test_rwkv6_cache_dtypes():
                               cfg.rwkv_head_dim)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_int8_cache_request_keeps_recurrent_caches_bf16(arch):
+    """The int8 layout exists for attention KV only: under an int8 request
+    the recurrent caches (x_tm, x_cm, conv) stay bf16 and the states (s,
+    h) fp32, layer by layer as the reference's ``_block_cache`` gives
+    them.  The port's attention cache still raises for int8 (a later
+    slice), so RecurrentGemma's full ``init_cache`` does too."""
+    jcfg, cfg = jax_get_reduced(arch), get_reduced(arch)
+    jc = jbb.init_cache(jcfg, 2, 16, dtype=jnp.int8)
+    want = [{k: str(np.dtype(x.dtype)) for k, x in g["mix"].items()}
+            for g in jc["groups"]]
+    recurrent = {"rwkv6": ("x_tm", "x_cm", "s"), "rglru": ("conv", "h")}
+    checked = 0
+    for (spec, _), dtypes in zip(layer_groups(cfg), want):
+        if spec.kind not in recurrent:
+            assert dtypes["k"] == "int8"
+            with pytest.raises(NotImplementedError):
+                backbone._block_cache(cfg, spec, 2, 16, torch.int8, "cpu")
+            continue
+        got = backbone._block_cache(cfg, spec, 2, 16, torch.int8, "cpu")
+        assert sorted(got) == sorted(dtypes) == sorted(recurrent[spec.kind])
+        for key, t in got.items():
+            assert str(t.dtype).removeprefix("torch.") == dtypes[key], key
+        checked += 1
+    assert checked > 0
+    if any(spec.kind not in recurrent for spec in layer_plan(cfg)):
+        with pytest.raises(NotImplementedError):
+            backbone.init_cache(cfg, 2, 16, dtype=torch.int8, device="cpu")
+    else:
+        caches = backbone.init_cache(cfg, 2, 16, dtype=torch.int8,
+                                     device="cpu")
+        assert [c["mix"]["x_tm"].dtype for c in caches] == (
+            [torch.bfloat16] * len(caches))
+
+
+def test_int8_cache_request_decodes_as_the_bf16_cache(model):
+    """Reduced RWKV6-7B with an int8 cache request: prefill and decode
+    logits equal those of the bf16-cache run exactly (the same caches)."""
+    cfg, _, params = model
+    toks = _t(_tokens(30, (2, 12), cfg.vocab)).long()
+    out = {}
+    for dtype in (torch.int8, torch.bfloat16):
+        tc = backbone.init_cache(cfg, 2, 32, dtype=dtype, device="cpu")
+        logits = []
+        lg, tc = backbone.prefill(cfg, params, {"tokens": toks[:, :9]}, tc)
+        logits.append(lg)
+        for i in range(9, 12):
+            lg, tc = backbone.decode_step(cfg, params, toks[:, i], tc, i)
+            logits.append(lg)
+        out[dtype] = logits
+    for a, b in zip(out[torch.int8], out[torch.bfloat16]):
+        assert torch.equal(a, b)
+
+
 # --------------------------------------------------------------------------- #
 # prefill + decode                                                             #
 # --------------------------------------------------------------------------- #
