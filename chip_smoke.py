@@ -34,6 +34,15 @@ fails ends the run with exit code 1:
                zeroed just before and read just after; ``torch.profiler`` traces the card's activity over the
                run for the device's busy share; peak device memory is
                counted from the allocation at the phase's start;
+4b. slice mcb8 — ``run_batched`` over the paper's MCB8 policy family on
+               the card: Lublin (1000 jobs, 128 nodes, load 0.7, seed 0)
+               under the /per, MCB8 *, /stretch-per (OPT=MAX and OPT=AVG)
+               and MINFT policies, and HPC2N (1000 jobs, 128 nodes, seed
+               0) under EASY and GreedyPM */per/OPT=MIN/MINVT=600; every
+               outcome field of every record must equal the host numpy
+               ``Engine`` run (timed by cell), both kernels must launch,
+               and the launch counts, busy share and peak memory are read
+               as in phase 4;
 5. serve kernels — flash attention, flash decode, the RG-LRU scan and the
                RWKV6 WKV recurrence against their plain versions on the
                card, fp32 and bf16, at RecurrentGemma-2B's shapes (a prompt
@@ -119,6 +128,15 @@ BF16_TC_OPS_PER_S = 989e12
 
 N_JOBS, N_NODES, LOAD = 1000, 128, 0.7
 MIN_SEEDS = 16          # GreedyP */OPT=MIN cells in phase 4 (slice)
+# phase 4b (slice mcb8): the MCB8 family on Lublin seed 0 (phase 4's trace
+# size), and the paper's headline pair on its HPC2N trace set (seed 0)
+MCB8_LUBLIN = ("GreedyP */per/OPT=MIN/MINVT=600",
+               "GreedyPM */per/OPT=MIN/MINVT=600",
+               "MCB8 */OPT=MIN/MINVT=600", "MCB8/per/OPT=MIN/MINVT=600",
+               "/per/OPT=MIN", "/stretch-per/OPT=MAX", "/stretch-per/OPT=AVG",
+               "GreedyPM */per/OPT=AVG/MINFT=300")
+MCB8_HPC2N = ("EASY", "GreedyPM */per/OPT=MIN/MINVT=600")
+HPC2N_JOBS = 1000       # not cut
 
 _NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the solve
 
@@ -657,19 +675,19 @@ def stop_device_trace(prof, trace_error, wall_s):
                 "note": f"{type(exc).__name__}: {exc}: not measured"}
 
 
-def phase_slice(torch, np):
+def drive_cells(torch, np, cells):
+    """``run_batched`` over ``cells`` on the card, then each cell on the
+    host numpy ``Engine``: the records, the sweep's wall, the launch counts
+    and routes (zeroed just before the run, read just after), peak device
+    memory over the start, the traced busy share, each cell's host wall,
+    the host run's allocation seconds and the cells whose outcome fields
+    differ from the host run (or whose max stretch is not finite and at
+    least 1)."""
     from repro_torch.kernels import ops
     from repro_torch.sched.engine import Engine, SimParams
-    from repro_torch.sched.sweep import Cell, run_batched
-    from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
+    from repro_torch.sched.sweep import run_batched
+    from repro_torch.workloads.registry import make_trace_ir
 
-    def w(seed):
-        return WorkloadSpec("lublin", n_jobs=N_JOBS, n_nodes=N_NODES,
-                            seed=seed, load=LOAD)
-
-    cells = ([Cell(w(s), "GreedyP */OPT=MIN") for s in range(MIN_SEEDS)]
-             + [Cell(w(s), "Greedy */OPT=AVG") for s in range(2)]
-             + [Cell(w(s), "EASY") for s in range(2)])
     for c in cells:
         make_trace_ir(c.workload)               # traces are set-up, not run
     torch.cuda.synchronize()
@@ -687,44 +705,103 @@ def phase_slice(torch, np):
     busy = stop_device_trace(prof, trace_error, wall)
     del prof
 
-    t1 = time.perf_counter()
     host_alloc = TimedHostAlloc()
-    mismatches = []
+    host_walls, mismatches = [], []
     for c, rec in zip(cells, res.records):
+        t1 = time.perf_counter()
         ref = Engine(make_trace_ir(c.workload), c.policy,
-                     SimParams(n_nodes=N_NODES),
+                     SimParams(n_nodes=c.workload.n_nodes),
                      alloc_backend=host_alloc).run()
+        host_walls.append(time.perf_counter() - t1)
         bad = [k for k in _OUTCOMES if rec[k] != getattr(ref, k)]
         if not np.isfinite(rec["max_stretch"]) or rec["max_stretch"] < 1.0:
             bad.append("max_stretch not finite and >= 1")
         if bad:
             mismatches.append({"cell": c.name, "fields": bad})
-    host_wall = time.perf_counter() - t1
-    stats = res.alloc_stats
-    ok = not mismatches and all(v > 0 for v in launches.values())
+    return {"res": res, "wall": wall, "launches": launches,
+            "routes": routes, "peak": peak, "base": base, "busy": busy,
+            "host_walls": host_walls, "host_alloc_s": host_alloc.seconds,
+            "mismatches": mismatches}
+
+
+def sweep_line(run):
+    """The sweep's numbers of a :func:`drive_cells` run, for a phase line."""
+    stats = run["res"].alloc_stats
+    n = len(run["res"].records)
+    return {"wall_s": run["wall"], "cells_per_s": n / run["wall"],
+            "device": run["busy"],
+            "dispatches": stats["dispatches"], "rounds": stats["rounds"],
+            "host_syncs": stats["host_syncs"], "launches": run["launches"],
+            "routes": run["routes"],
+            "serve_min_s": stats["min_s"], "serve_avg_s": stats["avg_s"],
+            "max_memory_allocated_bytes": run["peak"],
+            "allocated_before_bytes": run["base"],
+            "min_shapes": {str(k): v for k, v
+                           in stats["min_shapes"].most_common(6)},
+            "avg_shapes": {str(k): v for k, v
+                           in stats["avg_shapes"].most_common(6)}}
+
+
+def phase_slice(torch, np):
+    from repro_torch.sched.sweep import Cell
+    from repro_torch.workloads.registry import WorkloadSpec
+
+    def w(seed):
+        return WorkloadSpec("lublin", n_jobs=N_JOBS, n_nodes=N_NODES,
+                            seed=seed, load=LOAD)
+
+    cells = ([Cell(w(s), "GreedyP */OPT=MIN") for s in range(MIN_SEEDS)]
+             + [Cell(w(s), "Greedy */OPT=AVG") for s in range(2)]
+             + [Cell(w(s), "EASY") for s in range(2)])
+    run = drive_cells(torch, np, cells)
+    res, launches = run["res"], run["launches"]
+    ok = not run["mismatches"] and all(v > 0 for v in launches.values())
     emit({"phase": "slice", "ok": ok, "cells": len(cells),
           "min_seeds": MIN_SEEDS,
           "n_jobs": N_JOBS, "n_nodes": N_NODES, "load": LOAD,
-          "wall_s": wall, "cells_per_s": len(cells) / wall,
-          "device": busy,
-          "dispatches": stats["dispatches"], "rounds": stats["rounds"],
-          "host_syncs": stats["host_syncs"], "launches": launches,
-          "routes": routes,
-          "serve_min_s": stats["min_s"], "serve_avg_s": stats["avg_s"],
-          "max_memory_allocated_bytes": peak,
-          "allocated_before_bytes": base,
-          "min_shapes": {str(k): v for k, v
-                         in stats["min_shapes"].most_common(6)},
-          "avg_shapes": {str(k): v for k, v
-                         in stats["avg_shapes"].most_common(6)},
-          "host_reference_wall_s": host_wall,
-          "host_reference_alloc_s": host_alloc.seconds,
-          "mismatches": mismatches,
+          **sweep_line(run),
+          "host_reference_wall_s": sum(run["host_walls"]),
+          "host_reference_alloc_s": run["host_alloc_s"],
+          "mismatches": run["mismatches"],
           "max_stretch": [rec["max_stretch"] for rec in res.records]})
     if not ok:
         raise PhaseFailed("the slice disagrees with the host run or did not "
                           "reach a kernel")
-    return launches, stats
+    return launches, res.alloc_stats
+
+
+def phase_slice_mcb8(torch, np):
+    """The paper's MCB8 policy family on the card: MCB8 re-packs, the /per
+    and /stretch-per passes, each followed by the §4.6 reallocation
+    through the lockstep dispatcher, on Lublin and on HPC2N."""
+    from repro_torch.sched.sweep import Cell
+    from repro_torch.workloads.registry import WorkloadSpec
+
+    lublin = WorkloadSpec("lublin", n_jobs=N_JOBS, n_nodes=N_NODES, seed=0,
+                          load=LOAD)
+    hpc2n = WorkloadSpec("hpc2n", n_jobs=HPC2N_JOBS, n_nodes=N_NODES, seed=0)
+    cells = ([Cell(lublin, p) for p in MCB8_LUBLIN]
+             + [Cell(hpc2n, p) for p in MCB8_HPC2N])
+    run = drive_cells(torch, np, cells)
+    res, launches = run["res"], run["launches"]
+    host_by_policy = Counter()
+    for c, s in zip(cells, run["host_walls"]):
+        host_by_policy[f"{c.workload.kind} {c.policy}"] += s
+    ok = not run["mismatches"] and all(v > 0 for v in launches.values())
+    emit({"phase": "slice mcb8", "ok": ok, "cells": len(cells),
+          "lublin": lublin.to_dict(), "hpc2n": hpc2n.to_dict(),
+          **sweep_line(run),
+          "host_reference_wall_s": sum(run["host_walls"]),
+          "host_reference_alloc_s": run["host_alloc_s"],
+          "host_reference_s_by_cell": dict(host_by_policy),
+          "mismatches": run["mismatches"],
+          "stretch": {f"{c.workload.kind} {c.policy}":
+                      {"max": rec["max_stretch"], "mean": rec["mean_stretch"],
+                       "n_mig": rec["n_mig"], "n_pmtn": rec["n_pmtn"]}
+                      for c, rec in zip(cells, res.records)}})
+    if not ok:
+        raise PhaseFailed("the MCB8 slice disagrees with the host run or did "
+                          "not reach a kernel")
 
 
 # --------------------------------------------------------------------------- #
@@ -1597,6 +1674,8 @@ def main() -> int:
         phase_allocator(torch, np)
         phase = "slice"
         launches, stats = phase_slice(torch, np)
+        phase = "slice mcb8"
+        phase_slice_mcb8(torch, np)
         phase = "serve kernels"
         phase_serve_kernels(torch)
         for arch in SERVE_ARCHS:

@@ -1,2 +1,12 @@
-"""repro_torch.core — job model, incidence kernels, greedy placement, policy
-grammar, engine state, and the batched torch allocation backend."""
+"""repro_torch.core — job model, incidence kernels, greedy placement, MCB8
+packing and MCB8-stretch, policy grammar, engine state, and the batched
+torch allocation backend."""
+from .mcb8 import MCB8Result, mcb8, mcb8_pack
+from .stretch_opt import (StretchResult, improve_avg_stretch,
+                          improve_max_stretch, mcb8_stretch)
+
+__all__ = [
+    "mcb8", "mcb8_pack", "MCB8Result",
+    "mcb8_stretch", "improve_max_stretch", "improve_avg_stretch",
+    "StretchResult",
+]

@@ -6,13 +6,15 @@ A generic :class:`ComposedPolicy` assembles registered components and the
 ``finalize``):
 
 * **SubmitAction** — reaction to a job arrival: ``greedy`` / ``greedyP`` /
-  ``greedyPM`` (§4.2) or ``fcfs-queue`` (batch FIFO admission).
-* **CompletionAction** — reaction to job completions: the ``greedy``
-  opportunistic pass (§4.2), batch ``reclaim`` + ``fcfs-start`` /
-  ``easy-backfill`` / ``easy-frac-backfill`` restarts (§5.2).
+  ``greedyPM`` / ``mcb8`` (§4.2) or ``fcfs-queue`` (batch FIFO admission).
+* **CompletionAction** — reaction to job completions: ``greedy`` /
+  ``mcb8`` opportunistic passes (§4.2), batch ``reclaim`` + ``fcfs-start``
+  / ``easy-backfill`` / ``easy-frac-backfill`` restarts (§5.2).
+* **PeriodicPass** — the period-``T`` tick: ``mcb8`` / ``mcb8-stretch``
+  (§4.3/§4.7) or ``backfill`` (batch queue drained only on the tick).
 * **OptPass** — the per-event resource-allocation post-pass (§4.6):
   ``MIN`` / ``AVG`` / ``MAX`` (``MAX`` delegates its per-event reallocation
-  to ``MIN``).
+  to ``MIN``, as the stretch-periodic policies do).
 
 Every component is registered under ``(kind, name)`` via
 :func:`register_component`; :func:`compose_from_spec` assembles the
@@ -22,10 +24,6 @@ Whole compositions the string grammar cannot express are registered by
 — EASY backfilling whose backfill step may *fractionally* co-locate a
 candidate onto occupied nodes, with an OPT=MIN yield post-pass arbitrating
 the sharing (see :class:`BatchStartPass`).
-
-The MCB8-based components (submit/complete ``mcb8``, the ``/per`` and
-``/stretch-per`` periodic passes) are not ported yet: their specs raise
-``NotImplementedError`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -36,10 +34,12 @@ from itertools import islice
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core.greedy import greedy_p, greedy_place, greedy_pm
-from ..core.job import PAUSED, PENDING, JobSpec
+from ..core.job import PAUSED, PENDING, RUNNING, JobSpec
+from ..core.mcb8 import mcb8
 from ..core.policies import PolicySpec, parse_policy
 from ..core.state import JobView
-from .engine import Policy, SimParams, _reallocate_yields
+from ..core.stretch_opt import improve_avg_stretch, improve_max_stretch, mcb8_stretch
+from .engine import Policy, SimParams, _node_multiset, _reallocate_yields
 
 __all__ = [
     "Component",
@@ -111,10 +111,6 @@ COMPONENT_KINDS = ("submit", "complete", "periodic", "opt")
 
 _COMPONENTS: Dict[Tuple[str, str], type] = {}
 
-#: components of the policy grammar that need MCB8 (not ported yet)
-_UNPORTED = {("submit", "mcb8"), ("complete", "mcb8"),
-             ("periodic", "mcb8"), ("periodic", "mcb8-stretch")}
-
 
 def register_component(kind: str, name: str) -> Callable[[type], type]:
     """Class decorator: register a :class:`Component` under ``(kind, name)``."""
@@ -134,10 +130,6 @@ def register_component(kind: str, name: str) -> Callable[[type], type]:
 
 
 def get_component(kind: str, name: str) -> type:
-    if (kind, name) in _UNPORTED:
-        raise NotImplementedError(
-            f"the {kind} component {name!r} (MCB8 / periodic policies) is "
-            f"not ported yet; see ROADMAP.md")
     try:
         return _COMPONENTS[(kind, name)]
     except KeyError:
@@ -153,7 +145,7 @@ class ComposedPolicy(Policy):
 
     Hooks fan out to components in composition order; ``shared`` is a
     per-run scratch namespace for cross-component coordination (the batch
-    queue state) cleared on every bind.
+    queue state, the stretch-pass yield flag) cleared on every bind.
     """
 
     def __init__(
@@ -289,6 +281,54 @@ def resolve_policy(name: str) -> Optional[Policy]:
 
 
 # --------------------------------------------------------------------------- #
+# DFRS helpers (shared by the §4 components)                                   #
+# --------------------------------------------------------------------------- #
+def _pinned(e, spec: Optional[PolicySpec]) -> Dict[int, List[int]]:
+    """Jobs protected from remapping by MINVT/MINFT (§4.3)."""
+    pins: Dict[int, List[int]] = {}
+    if spec is None or (spec.minvt is None and spec.minft is None):
+        return pins
+    now = e.state.now
+    for js in e.state.running():
+        if spec.minvt is not None and js.vt < spec.minvt:
+            pins[js.spec.jid] = list(js.mapping)
+        elif spec.minft is not None and js.flow_time(now) < spec.minft:
+            pins[js.spec.jid] = list(js.mapping)
+    return pins
+
+
+def _apply_global_mapping(e, mappings: Dict[int, List[int]],
+                          cands: Sequence[JobView]) -> None:
+    """Apply a from-scratch MCB8 mapping transactionally: the mapping is
+    feasible as a whole, so all removals happen before any placement."""
+    migrations: List[Tuple[JobView, List[int]]] = []
+    starts: List[Tuple[JobView, List[int]]] = []
+    for js in cands:
+        new_map = mappings.get(js.spec.jid)
+        if js.status == RUNNING:
+            if new_map is None:
+                e.pause(js)
+            elif _node_multiset(js.mapping) != _node_multiset(new_map):
+                migrations.append((js, new_map))
+        elif new_map is not None:
+            starts.append((js, new_map))
+    e.migrate_many(migrations)
+    for js, new_map in starts:
+        e.start(js, new_map)
+
+
+def _apply_mcb8(e, spec: Optional[PolicySpec]) -> None:
+    cands = e.state.uncompleted()
+    if not cands:
+        return
+    res = mcb8(
+        cands, e.params.n_nodes, e.state.now,
+        pinned=_pinned(e, spec), alive=e.state.alive,
+    )
+    _apply_global_mapping(e, res.mappings, cands)
+
+
+# --------------------------------------------------------------------------- #
 # §4 DFRS components                                                           #
 # --------------------------------------------------------------------------- #
 @register_component("submit", "greedy")
@@ -332,6 +372,14 @@ class SubmitGreedyPM(_SubmitPreempting):
     _fn = staticmethod(greedy_pm)
 
 
+@register_component("submit", "mcb8")
+class SubmitMCB8(Component):
+    """Re-pack the whole cluster with MCB8 on every arrival (§4.2)."""
+
+    def on_submit(self, js: JobView) -> None:
+        _apply_mcb8(self.p.e, self.spec)
+
+
 @register_component("complete", "greedy")
 class CompleteGreedy(Component):
     """Opportunistically greedy-start waiting jobs by §4.1 priority."""
@@ -349,6 +397,61 @@ class CompleteGreedy(Component):
                 e.start(js, mapping)
 
 
+@register_component("complete", "mcb8")
+class CompleteMCB8(Component):
+    """Re-pack the whole cluster with MCB8 on completions."""
+
+    def on_complete(self) -> None:
+        _apply_mcb8(self.p.e, self.spec)
+
+
+@register_component("periodic", "mcb8")
+class PeriodicMCB8(Component):
+    """The /per pass: MCB8 from scratch every period (§4.3)."""
+
+    periodic_kind = "mcb8"
+
+    def on_tick(self) -> None:
+        _apply_mcb8(self.p.e, self.spec)
+
+
+@register_component("periodic", "mcb8-stretch")
+class PeriodicStretch(Component):
+    """The /stretch-per pass (§4.7): MCB8-stretch mapping plus an explicit
+    max- or average-stretch yield optimization, which preempts the per-event
+    OPT pass for this timestamp (via the shared ``stretch_yields_set`` flag).
+    """
+
+    periodic_kind = "mcb8-stretch"
+
+    def on_tick(self) -> None:
+        e = self.p.e
+        cands = e.state.uncompleted()
+        if not cands:
+            return
+        res = mcb8_stretch(
+            cands, e.params.n_nodes, e.state.now, e.params.period,
+            pinned=_pinned(e, self.spec), alive=e.state.alive,
+        )
+        _apply_global_mapping(e, res.mappings, cands)
+        running = e.state.running()
+        mappings = {js.spec.jid: js.mapping for js in running}
+        ylds = {js.spec.jid: res.yields.get(js.spec.jid, 0.0) for js in running}
+        if self.spec is not None and self.spec.opt == "MAX":
+            ylds = improve_max_stretch(
+                running, mappings, ylds, e.params.n_nodes, e.state.now,
+                e.params.period,
+            )
+        else:
+            ylds = improve_avg_stretch(
+                running, mappings, ylds, e.params.n_nodes, e.state.now,
+                e.params.period,
+            )
+        for js in running:
+            js.yld = float(min(1.0, ylds.get(js.spec.jid, 0.0)))
+        self.p.shared["stretch_yields_set"] = True
+
+
 class _OptPass(Component):
     """Per-event §4.6 yield reallocation for all running jobs."""
 
@@ -357,6 +460,8 @@ class _OptPass(Component):
     def finalize(self, acted: bool) -> None:
         if not acted:
             return
+        if self.p.shared.pop("stretch_yields_set", False):
+            return                 # /stretch-per just set yields explicitly
         _reallocate_yields(self.p.e, type(self)._opt)
 
 
@@ -406,7 +511,8 @@ def _batch_state(p: ComposedPolicy) -> _BatchState:
 @register_component("submit", "fcfs-queue")
 class QueueSubmit(Component):
     """Batch admission: enqueue arrivals FIFO; a start pass drains the
-    queue (``fcfs-start`` / ``easy-backfill``)."""
+    queue (``fcfs-start`` / ``easy-backfill`` on events, ``backfill`` on
+    the periodic tick)."""
 
     handles_cluster_events = False  # batch does not model failures
 
@@ -472,12 +578,22 @@ class BatchStartPass(Component):
     handles_cluster_events = False
     _algo = "FCFS"                  # FCFS | EASY
     _frac = False                   # fractional backfill extension
+    _on_tick = False                # drain the queue on the periodic tick
 
     def finalize(self, acted: bool) -> None:
+        if self._on_tick:
+            return
         st = _batch_state(self.p)
         if st.dirty:
             self._try_start(st)
             st.dirty = False
+
+    def on_tick(self) -> None:
+        if not self._on_tick:
+            return
+        st = _batch_state(self.p)
+        self._try_start(st)
+        st.dirty = False
 
     # ---- allocation -----------------------------------------------------
     def _start_job(self, st: _BatchState, js: JobView) -> None:
@@ -565,6 +681,16 @@ class EasyBackfill(BatchStartPass):
 class EasyFracBackfill(BatchStartPass):
     _algo = "EASY"
     _frac = True
+
+
+@register_component("periodic", "backfill")
+class PeriodicBackfill(BatchStartPass):
+    """Drain the batch queue only on the periodic tick (delayed batch
+    scheduling — a composition the paper's grammar cannot express)."""
+
+    _algo = "EASY"
+    _on_tick = True
+    periodic_kind = "backfill"
 
 
 # --------------------------------------------------------------------------- #

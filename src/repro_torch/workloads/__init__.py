@@ -1,2 +1,3 @@
-"""repro_torch.workloads — the columnar Trace IR and the Lublin–Feitelson
-workload generator behind declarative workload specs."""
+"""repro_torch.workloads — the columnar Trace IR, the Lublin–Feitelson
+workload generator, the HPC2N / swf preprocessing, and the open registry
+of workload kinds behind declarative workload specs."""

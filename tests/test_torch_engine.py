@@ -4,8 +4,9 @@ The same Lublin spec must give the same trace fingerprint in both
 packages; the port's ``Engine`` must give a ``SimResult`` equal to the
 reference's on every slice policy, on its numpy path and with the torch
 allocator on the CPU; ``run_batched(device="cpu")`` must reproduce the
-reference ``run_grid`` records; a bad lane must raise without deadlock;
-and the periodic/MCB8 policies must refuse to run.
+reference ``run_grid`` records, on grids that mix the MCB8 family
+(``/per``, ``/stretch-per``, ``MCB8 *``) with greedy and batch lanes on
+Lublin and HPC2N traces; and a bad lane must raise without deadlock.
 """
 import dataclasses
 import threading
@@ -121,9 +122,46 @@ def test_run_batched_bad_lane_raises_without_deadlock():
     assert caught and "NoSuchPolicy" in str(caught[0])
 
 
-@pytest.mark.parametrize("policy", ["GreedyP */per/OPT=MIN", "MCB8 *",
-                                    "/stretch-per/OPT=MAX"])
-def test_periodic_and_mcb8_policies_not_ported(policy):
-    tr = make_trace_ir(WorkloadSpec("lublin", n_jobs=10, n_nodes=4, seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tr, policy, SimParams(n_nodes=4))
+# lanes that allocate on every event, lanes that skip a request on their
+# /stretch-per ticks (OPT=MAX and OPT=AVG) and allocate again later while
+# others are parked, MCB8 re-packs, and batch lanes that never allocate
+MIXED_POLICIES = ["EASY", "GreedyPM */OPT=MIN",
+                  "GreedyP */per/OPT=MIN/MINVT=600",
+                  "MCB8 */OPT=MIN/MINVT=600", "/per/OPT=AVG",
+                  "/stretch-per/OPT=MAX", "/stretch-per/OPT=AVG",
+                  "GreedyPM */per/OPT=AVG/MINFT=300"]
+
+
+@pytest.mark.parametrize("kind,spec", [
+    ("lublin", dict(n_jobs=40, n_nodes=16, seed=1, load=1.2)),
+    ("hpc2n", dict(n_jobs=60, n_nodes=16, seed=0))])
+def test_run_batched_mcb8_family_matches_reference_run_grid(kind, spec):
+    ref = ref_run_grid(ref_grid([RefWorkload(kind, **spec)], MIXED_POLICIES))
+    got = run_batched(grid([WorkloadSpec(kind, **spec)], MIXED_POLICIES),
+                      device="cpu")
+    assert _outcomes(got.records) == _outcomes(ref.records)
+    assert sum(r["n_mig"] for r in got.records) > 0
+    assert got.alloc_stats["min_shapes"] and got.alloc_stats["avg_shapes"]
+
+
+def test_run_batched_lublin_and_hpc2n_in_one_grid():
+    """Lanes of both trace sets in one lockstep schedule."""
+    ws = [dict(kind="lublin", n_jobs=30, n_nodes=16, seed=2, load=1.5),
+          dict(kind="hpc2n", n_jobs=50, n_nodes=16, seed=3)]
+    policies = ["EASY", "MCB8/per/OPT=MIN/MINVT=600", "/stretch-per/OPT=MAX",
+                "GreedyPM */per/OPT=MIN/MINVT=600"]
+    ref = ref_run_grid(ref_grid([RefWorkload(**w) for w in ws], policies))
+    got = run_batched(grid([WorkloadSpec(**w) for w in ws], policies),
+                      device="cpu")
+    assert _outcomes(got.records) == _outcomes(ref.records)
+
+
+@pytest.mark.parametrize("policy", ["MCB8 */OPT=MIN/MINVT=600",
+                                    "/stretch-per/OPT=AVG"])
+def test_api_simulate_cpu_mcb8_family_equals_reference(policy):
+    spec = dict(n_jobs=40, n_nodes=16, seed=4)
+    ref = _result(RefEngine(ref_trace(RefWorkload("hpc2n", **spec)), policy,
+                            RefParams(n_nodes=16)).run())
+    got = _result(api.simulate(api.WorkloadSpec("hpc2n", **spec), policy,
+                               device="cpu"))
+    assert got == ref

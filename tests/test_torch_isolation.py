@@ -61,7 +61,9 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
                 "configs.recurrentgemma_2b", "configs.rwkv6_7b",
                 "kernels.flash_attention", "kernels.rglru_scan",
                 "kernels.maxmin_solve", "kernels.alloc_matvec",
-                "kernels.rwkv6_scan", "train.serve", "launch.serve"):
+                "kernels.rwkv6_scan", "train.serve", "launch.serve",
+                "core.mcb8", "core.stretch_opt", "workloads.hpc2n",
+                "workloads.registry", "sched.components"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
