@@ -43,6 +43,20 @@ fails ends the run with exit code 1:
                ``Engine`` run (timed by cell), both kernels must launch,
                and the launch counts, busy share and peak memory are read
                as in phase 4;
+4c. slice session — open sessions on the card, under GreedyP */OPT=MIN:
+               (a) a 20,000-job synthetic swf log (the scale benchmark's
+               recipe, offered load ~0.7 on 128 nodes) streamed through
+               ``stream_trace`` in 4-day windows into ``open_session``
+               with rows compacted every 4,096 retired, against the host
+               numpy ``Engine`` run of the whole log, uncompacted, every
+               ``SimResult`` field with the per-job dicts; peak engine
+               rows; (b) phase 4's Lublin trace (seed 0) stepped to its
+               500th release, a failure of nodes 0-7 at +600 s and their
+               join at +7,200 s injected, the snapshot saved and loaded,
+               9 what-if branches raced in lockstep by ``run_branches``
+               on the card, each record against its serial host run, the
+               same-policy branch also against the original session run
+               on; launch counts zeroed before and read after each part;
 5. serve kernels — flash attention, flash decode, the RG-LRU scan and the
                RWKV6 WKV recurrence against their plain versions on the
                card, fp32 and bf16, at RecurrentGemma-2B's shapes (a prompt
@@ -85,7 +99,8 @@ fails ends the run with exit code 1:
                the served prompts) is replayed on a fresh server under
                ``torch.profiler`` for the card's busy share and kernel time
                by name;
-8. kernels line — per kernel: launches on its path (phase 4 or 7), the
+8. kernels line — per kernel: launches on its path (phase 4 or 7; the
+               allocation kernels' also by part of phase 4c), the
                largest difference from its plain version, device times
                (CUDA events around a CUDA graph of many launches) of the
                kernel, its plain version and a library call computing the
@@ -109,6 +124,7 @@ port beside this script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -137,6 +153,18 @@ MCB8_LUBLIN = ("GreedyP */per/OPT=MIN/MINVT=600",
                "GreedyPM */per/OPT=AVG/MINFT=300")
 MCB8_HPC2N = ("EASY", "GreedyPM */per/OPT=MIN/MINVT=600")
 HPC2N_JOBS = 1000       # not cut
+# phase 4c (slice session): a 20,000-job swf log (the scale benchmark's
+# synthetic recipe, mean gap cut to 280 s for an offered load near 0.7 on
+# 128 nodes) streamed in 4-day windows through a compacting session; and 9
+# what-if branches forked from phase 4's Lublin trace at its 500th release
+SESSION_POLICY = "GreedyP */OPT=MIN"
+STREAM_JOBS, STREAM_GAP_S = 20_000, 280.0
+STREAM_WINDOW_S, COMPACT_AT = 4 * 86_400.0, 4096
+BRANCH_AT, FAIL_NODES = 500, tuple(range(8))
+BRANCHES = ("GreedyP */OPT=MIN", "GreedyPM */OPT=MIN", "Greedy */OPT=AVG",
+            "GreedyPM */per/OPT=MIN/MINVT=600",
+            {"policy": "GreedyPM */per/OPT=MIN/MINVT=600", "period": 1200.0},
+            "MCB8 */OPT=MIN/MINVT=600", "EASY+OPT=MIN", "EASY", "FCFS")
 
 _NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the solve
 
@@ -675,6 +703,42 @@ def stop_device_trace(prof, trace_error, wall_s):
                 "note": f"{type(exc).__name__}: {exc}: not measured"}
 
 
+def _traced(torch, fn):
+    """``fn()`` on the card with the launch counts zeroed just before and
+    read just after, under the device trace; peak device memory over the
+    start.  Returns what ``fn`` returned and the numbers."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prof, trace_error = start_device_trace(torch)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in ("alloc_matvec", "maxmin_solve")}
+    routes = {k: dict(v) for k, v in ops.routes.items() if v}
+    peak = torch.cuda.max_memory_allocated() - base
+    busy = stop_device_trace(prof, trace_error, wall)
+    return out, {"wall_s": wall, "launches": launches, "routes": routes,
+                 "max_memory_allocated_bytes": peak,
+                 "allocated_before_bytes": base, "device": busy}
+
+
+def _shapes(stats):
+    return {"min_dispatches": sum(stats["min_shapes"].values()),
+            "avg_dispatches": sum(stats["avg_shapes"].values()),
+            "dispatches": stats["dispatches"], "rounds": stats["rounds"],
+            "host_syncs": stats["host_syncs"],
+            "serve_min_s": stats["min_s"], "serve_avg_s": stats["avg_s"],
+            "min_shapes": {str(k): v for k, v
+                           in stats["min_shapes"].most_common(6)},
+            "avg_shapes": {str(k): v for k, v
+                           in stats["avg_shapes"].most_common(6)}}
+
+
 def drive_cells(torch, np, cells):
     """``run_batched`` over ``cells`` on the card, then each cell on the
     host numpy ``Engine``: the records, the sweep's wall, the launch counts
@@ -683,27 +747,13 @@ def drive_cells(torch, np, cells):
     the host run's allocation seconds and the cells whose outcome fields
     differ from the host run (or whose max stretch is not finite and at
     least 1)."""
-    from repro_torch.kernels import ops
     from repro_torch.sched.engine import Engine, SimParams
     from repro_torch.sched.sweep import run_batched
     from repro_torch.workloads.registry import make_trace_ir
 
     for c in cells:
         make_trace_ir(c.workload)               # traces are set-up, not run
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    prof, trace_error = start_device_trace(torch)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    res = run_batched(cells, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: ops.launches[k] for k in ("alloc_matvec", "maxmin_solve")}
-    routes = {k: dict(v) for k, v in ops.routes.items()}
-    peak = torch.cuda.max_memory_allocated() - base
-    busy = stop_device_trace(prof, trace_error, wall)
-    del prof
+    res, line = _traced(torch, lambda: run_batched(cells, device="cuda"))
 
     host_alloc = TimedHostAlloc()
     host_walls, mismatches = [], []
@@ -718,28 +768,16 @@ def drive_cells(torch, np, cells):
             bad.append("max_stretch not finite and >= 1")
         if bad:
             mismatches.append({"cell": c.name, "fields": bad})
-    return {"res": res, "wall": wall, "launches": launches,
-            "routes": routes, "peak": peak, "base": base, "busy": busy,
+    return {"res": res, "line": line, "launches": line["launches"],
             "host_walls": host_walls, "host_alloc_s": host_alloc.seconds,
             "mismatches": mismatches}
 
 
 def sweep_line(run):
     """The sweep's numbers of a :func:`drive_cells` run, for a phase line."""
-    stats = run["res"].alloc_stats
     n = len(run["res"].records)
-    return {"wall_s": run["wall"], "cells_per_s": n / run["wall"],
-            "device": run["busy"],
-            "dispatches": stats["dispatches"], "rounds": stats["rounds"],
-            "host_syncs": stats["host_syncs"], "launches": run["launches"],
-            "routes": run["routes"],
-            "serve_min_s": stats["min_s"], "serve_avg_s": stats["avg_s"],
-            "max_memory_allocated_bytes": run["peak"],
-            "allocated_before_bytes": run["base"],
-            "min_shapes": {str(k): v for k, v
-                           in stats["min_shapes"].most_common(6)},
-            "avg_shapes": {str(k): v for k, v
-                           in stats["avg_shapes"].most_common(6)}}
+    return {"cells_per_s": n / run["line"]["wall_s"], **run["line"],
+            **_shapes(run["res"].alloc_stats)}
 
 
 def phase_slice(torch, np):
@@ -802,6 +840,192 @@ def phase_slice_mcb8(torch, np):
     if not ok:
         raise PhaseFailed("the MCB8 slice disagrees with the host run or did "
                           "not reach a kernel")
+
+
+def write_swf_log(np, path, n_jobs, seed, mean_gap):
+    """A submit-sorted synthetic swf log, written line by line: the scale
+    benchmark's recipe (exponential gaps, runs uniform in 60-6000 s, 1-32
+    processors, 5-45 % of a node's memory)."""
+    from repro_torch.workloads.hpc2n import NODE_MEM_GB
+
+    rng = np.random.default_rng(seed)
+    node_kb = NODE_MEM_GB * 1024 * 1024
+    t = 0.0
+    with open(path, "w") as fh:
+        fh.write(f"; synthetic log: {n_jobs} jobs, seed {seed}\n")
+        gaps = rng.exponential(mean_gap, size=n_jobs)
+        runs = rng.uniform(60.0, 6000.0, size=n_jobs)
+        procs = rng.integers(1, 33, size=n_jobs)
+        mems = rng.uniform(0.05, 0.45, size=n_jobs) * node_kb
+        for jid, (g, run, p, mem) in enumerate(zip(gaps, runs, procs, mems)):
+            t += float(g)
+            f = ["-1"] * 18
+            f[0] = str(jid + 1)
+            f[1] = f"{t:.1f}"
+            f[3] = f"{run:.1f}"
+            f[4] = str(int(p))
+            f[6] = f"{mem:.0f}"
+            fh.write(" ".join(f) + "\n")
+
+
+def _result_fields(r):
+    d = dataclasses.asdict(r)
+    d.pop("sim_wall_s")                 # a measurement, not an outcome
+    return d
+
+
+def session_stream(torch, np, tmp):
+    """(a) the swf log streamed through a compacting session on the card,
+    against the host numpy ``Engine`` run of the whole log, uncompacted."""
+    from repro_torch.sched.engine import Engine, SimParams
+    from repro_torch.sched.session import open_session
+    from repro_torch.workloads.lublin import offered_load
+    from repro_torch.workloads.registry import (WorkloadSpec, make_trace_ir,
+                                                stream_trace)
+
+    path = str(Path(tmp) / "stream.swf")
+    write_swf_log(np, path, STREAM_JOBS, 0, STREAM_GAP_S)
+    whole = make_trace_ir(WorkloadSpec("swf", n_jobs=STREAM_JOBS,
+                                       n_nodes=N_NODES,
+                                       params={"path": path}))
+    load = offered_load(whole.to_specs(), N_NODES)
+    spec = WorkloadSpec("swf-stream", n_jobs=STREAM_JOBS, n_nodes=N_NODES,
+                        params={"path": path})
+    peak = {"rows": 0, "chunks": 0}
+
+    def run():
+        ses = open_session(SimParams(n_nodes=N_NODES,
+                                     compact_interval=COMPACT_AT),
+                           SESSION_POLICY, device="cuda")
+        st = ses.engine.state
+
+        def watched(chunks):
+            # a chunk is submitted after the next one is drawn, so the rows
+            # right after each submit are the rows now plus the last chunk
+            prev = 0
+            for c in chunks:
+                peak["rows"] = max(peak["rows"], len(st.specs) + prev)
+                peak["chunks"] += 1
+                prev = len(c)
+                yield c
+            peak["rows"] = max(peak["rows"], len(st.specs) + prev)
+
+        ses.stream(watched(stream_trace(spec, window_s=STREAM_WINDOW_S)))
+        return ses, ses.result()
+
+    (ses, got), line = _traced(torch, run)
+    st = ses.engine.state
+    host_alloc = TimedHostAlloc()
+    t0 = time.perf_counter()
+    ref = Engine(whole, SESSION_POLICY, SimParams(n_nodes=N_NODES),
+                 alloc_backend=host_alloc).run()
+    host_wall = time.perf_counter() - t0
+    a, b = _result_fields(got), _result_fields(ref)
+    bad = sorted(k for k in a if a[k] != b[k])
+    if not np.isfinite(got.max_stretch) or got.max_stretch < 1.0:
+        bad.append("max_stretch not finite and >= 1")
+    return {"jobs": len(whole), "offered_load": load,
+            "window_s": STREAM_WINDOW_S, "compact_interval": COMPACT_AT,
+            "chunks": peak["chunks"], "events": got.events,
+            "events_per_s": got.events / line["wall_s"],
+            "final_time": got.final_time, "max_stretch": got.max_stretch,
+            "mean_stretch": got.mean_stretch, **line,
+            **_shapes(ses.engine.alloc_backend.stats),
+            "peak_engine_rows": peak["rows"], "row_capacity": st.capacity,
+            "grow_count": st.grow_count, "retired_rows": len(st.retired),
+            "host_reference_wall_s": host_wall,
+            "host_reference_alloc_s": host_alloc.seconds,
+            "mismatches": bad}
+
+
+def _branch_name(entry):
+    if isinstance(entry, dict):
+        return f"{entry['policy']} period {entry['period']:g}"
+    return entry
+
+
+def session_branches(torch, np, tmp):
+    """(b) what-if branches from a snapshot of a session on the card, raced
+    in lockstep, each against its serial host run; the same-policy branch
+    also against the original session continued on the card."""
+    from repro_torch.sched.session import SessionState, open_session
+    from repro_torch.sched.sweep import run_branches
+    from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
+
+    lublin = WorkloadSpec("lublin", n_jobs=N_JOBS, n_nodes=N_NODES, seed=0,
+                          load=LOAD)
+    trace = make_trace_ir(lublin)
+    ses = open_session(N_NODES, SESSION_POLICY, device="cuda")
+    ses.submit(trace)
+    t_branch = float(np.sort(trace.release)[BRANCH_AT - 1])
+    ses.step_until(t_branch)
+    ses.inject({"kind": "fail", "t": ses.now + 600.0,
+                "nodes": list(FAIL_NODES)})
+    ses.inject({"kind": "join", "t": ses.now + 7200.0,
+                "nodes": list(FAIL_NODES)})
+    at = ses.observe()
+    snap = ses.snapshot()
+    path = snap.save(str(Path(tmp) / "snap.json"))
+    back = SessionState.load(path)
+    res, line = _traced(torch, lambda: run_branches(back, BRANCHES,
+                                                    device="cuda"))
+    t0 = time.perf_counter()
+    cont = ses.run()
+    cont_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = run_branches(back, BRANCHES, backend="numpy")
+    host_wall = time.perf_counter() - t0
+    skip = ("wall_s", "sim_wall_s", "backend")
+    mismatches = []
+    for rec, ref in zip(res.records, host.records):
+        bad = sorted(k for k in ref if k not in skip and rec.get(k) != ref[k])
+        if not np.isfinite(rec["max_stretch"]) or rec["max_stretch"] < 1.0:
+            bad.append("max_stretch not finite and >= 1")
+        if bad:
+            mismatches.append({"branch": rec["cell"], "fields": bad})
+    same = res.records[0]
+    cont_bad = [k for k in _OUTCOMES
+                if k in same and same[k] != getattr(cont, k)]
+    if not same["exact_continuation"]:
+        cont_bad.append("exact_continuation")
+    return {"trace": lublin.to_dict(), "branch_at_release": BRANCH_AT,
+            "t": at["t"], "running": at["n_running"],
+            "queued": at["queue_depth"], "done": at["n_completed"],
+            "fail_nodes": list(FAIL_NODES),
+            "fingerprint": snap.fingerprint,
+            "round_trip_ok": back.fingerprint == snap.fingerprint,
+            "branches": {_branch_name(BRANCHES[r["cell"]]):
+                         {"max_stretch": r["max_stretch"],
+                          "events": r["events"], "wall_s": r["wall_s"]}
+                         for r in res.records},
+            **line, **_shapes(res.alloc_stats),
+            "host_serial_wall_s": host_wall,
+            "host_by_branch_s": [r["wall_s"] for r in host.records],
+            "continuation_wall_s": cont_wall,
+            "continuation_mismatches": cont_bad,
+            "mismatches": mismatches}
+
+
+def phase_slice_session(torch, np):
+    """Open sessions on the card: a long swf log streamed with row
+    compaction, and what-if branches raced in lockstep."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        stream = session_stream(torch, np, tmp)
+        branches = session_branches(torch, np, tmp)
+    ok = (not stream["mismatches"] and not branches["mismatches"]
+          and not branches["continuation_mismatches"]
+          and branches["round_trip_ok"]
+          and stream["launches"]["maxmin_solve"] > 0
+          and branches["launches"]["maxmin_solve"] > 0
+          and branches["launches"]["alloc_matvec"] > 0)
+    emit({"phase": "slice session", "ok": ok, "policy": SESSION_POLICY,
+          "stream": stream, "branches": branches})
+    if not ok:
+        raise PhaseFailed("a session disagrees with the host run, or did "
+                          "not reach a kernel")
+    return {"stream": stream["launches"], "branches": branches["launches"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -1563,7 +1787,8 @@ def wkv6_entries(torch, np, launches, prompt_lens, routes, functions):
     return entries, ok
 
 
-def phase_kernel_line(torch, np, launches, stats, functions):
+def phase_kernel_line(torch, np, launches, stats, functions,
+                      session_launches):
     from repro_torch.kernels.alloc_matvec import (alloc_matvec_cuda,
                                                   alloc_matvec_plain)
     from repro_torch.kernels.maxmin_solve import (maxmin_solve_cuda,
@@ -1590,6 +1815,8 @@ def phase_kernel_line(torch, np, launches, stats, functions):
         "wrapper": "src/repro_torch/kernels/alloc_matvec.py",
         "replaces": "src/repro/kernels/alloc_matvec.py:65",
         "launches": launches["alloc_matvec"], "shape": [B, N, W],
+        "launches_session": {k: v["alloc_matvec"]
+                             for k, v in session_launches.items()},
         "ptxas": ptxas_of(functions, "alloc_matvec_kernel"),
         "max_abs_err": float((k - p).abs().max()) if k.numel() else 0.0,
         "library_max_abs_diff": float((k - lib).abs().max()),
@@ -1631,6 +1858,8 @@ def phase_kernel_line(torch, np, launches, stats, functions):
         "wrapper": "src/repro_torch/kernels/maxmin_solve.py",
         "replaces": "src/repro/core/alloc_jax.py:206-276",
         "launches": launches["maxmin_solve"], "shape": [B, N, W],
+        "launches_session": {k: v["maxmin_solve"]
+                             for k, v in session_launches.items()},
         "ptxas": ptxas_of(functions, "maxmin_solve_kernelILb"
                           + ("1" if route == "shared" else "0")),
         "rounds_mean": float(rounds.mean()), "rounds_max": int(rounds.max()),
@@ -1676,6 +1905,8 @@ def main() -> int:
         launches, stats = phase_slice(torch, np)
         phase = "slice mcb8"
         phase_slice_mcb8(torch, np)
+        phase = "slice session"
+        session_launches = phase_slice_session(torch, np)
         phase = "serve kernels"
         phase_serve_kernels(torch)
         for arch in SERVE_ARCHS:
@@ -1687,7 +1918,8 @@ def main() -> int:
             served[arch] = phase_serve(torch, np, arch)
         phase = "kernels line"
         alloc_entries, alloc_ok = phase_kernel_line(
-            torch, np, launches, stats, libraries["alloc"]["ptxas"])
+            torch, np, launches, stats, libraries["alloc"]["ptxas"],
+            session_launches)
         serve_entries, serve_ok = serve_kernel_entries(
             torch, np, *served[RG], libraries["attention"]["ptxas"], hgmma,
             libraries["rglru"]["ptxas"])

@@ -12,7 +12,18 @@
                      ["GreedyP */OPT=MIN", "EASY"])
     res = api.run_batched(cells)
 
-Both entry points take ``device="cuda"`` unless the caller passes
+    # an open session: stream a log through it, compacting finished rows
+    ses = api.open_session(api.SimParams(n_nodes=128, compact_interval=4096),
+                           "GreedyP */OPT=MIN")
+    ses.stream(api.stream_trace(api.WorkloadSpec(
+        "swf-stream", n_jobs=20000, n_nodes=128, params={"path": log})))
+    r = ses.result()
+
+    # what-if branches from a mid-run snapshot, raced in lockstep
+    ses.step_until(t)
+    res = api.run_branches(ses.snapshot(), ["GreedyPM */OPT=MIN", "EASY"])
+
+Every entry point takes ``device="cuda"`` unless the caller passes
 ``device="cpu"``; with no CUDA device the default raises.
 """
 from __future__ import annotations
@@ -25,12 +36,16 @@ from .core.job import JobSpec
 from .core.policies import PolicySpec
 from .sched.cluster import ClusterEvent
 from .sched.engine import Engine, Policy, SimParams, SimResult
-from .sched.sweep import Cell, SweepResult, grid, run_batched
-from .workloads.registry import WorkloadSpec, make_trace_ir
+from .sched.session import SessionState, SimSession, open_session
+from .sched.sweep import Cell, SweepResult, grid, run_batched, run_branches
+from .workloads.registry import (WorkloadSpec, list_workloads, make_trace_ir,
+                                 stream_trace)
 from .workloads.trace import Trace, as_trace
 
-__all__ = ["simulate", "grid", "run_batched", "WorkloadSpec", "Cell",
-           "SweepResult", "SimParams", "SimResult", "Trace", "ClusterEvent"]
+__all__ = ["simulate", "grid", "run_batched", "run_branches", "open_session",
+           "SimSession", "SessionState", "stream_trace", "list_workloads",
+           "WorkloadSpec", "Cell", "SweepResult", "SimParams", "SimResult",
+           "Trace", "ClusterEvent"]
 
 TraceLike = Union[WorkloadSpec, Trace, Sequence[JobSpec]]
 PolicyLike = Union[str, PolicySpec, Policy]

@@ -135,7 +135,10 @@ class NodeIncidence:
 
     def __init__(self, n_nodes: int, cpu_need: np.ndarray):
         self.n_nodes = int(n_nodes)
-        self.cpu_need = np.array(cpu_need, dtype=np.float64)
+        # owned geometric buffer; cpu_need is the width-sized head view
+        self._cpu_buf = np.array(cpu_need, dtype=np.float64)
+        self._width = int(self._cpu_buf.shape[0])
+        self.cpu_need = self._cpu_buf[: self._width]
         self.rows: List[dict] = [dict() for _ in range(self.n_nodes)]
         self._row_idx: List[np.ndarray] = [_EMPTY_I] * self.n_nodes
         self._row_dat: List[np.ndarray] = [_EMPTY_F] * self.n_nodes
@@ -160,6 +163,46 @@ class NodeIncidence:
             else:
                 del r[job]
         self._dirty.update(mapping)
+        self._snap = None
+
+    def extend(self, cpu_need_tail: np.ndarray) -> None:
+        """Grow the job-column space (streaming sessions append jobs).
+
+        Existing rows keep their cached arrays — old column data is
+        untouched — but the cached CSR snapshot is invalidated because the
+        matrix ``width`` (dense job count) changes.  Appends land in a
+        geometrically doubled buffer (amortized O(1) per job).
+        """
+        tail = np.asarray(cpu_need_tail, dtype=np.float64)
+        need = self._width + int(tail.shape[0])
+        if need > self._cpu_buf.shape[0]:
+            buf = np.empty(max(need, 2 * self._cpu_buf.shape[0], 16))
+            buf[: self._width] = self._cpu_buf[: self._width]
+            self._cpu_buf = buf
+        self._cpu_buf[self._width:need] = tail
+        self._width = need
+        self.cpu_need = self._cpu_buf[:need]
+        self._snap = None
+
+    def compact(self, keep: np.ndarray, new_of_old: np.ndarray) -> None:
+        """Drop evicted job columns (``EngineState.compact``).
+
+        ``keep`` — ascending surviving dense indices; ``new_of_old`` — the
+        old→new column map.  Every resident task belongs to a RUNNING job,
+        so all occupied columns survive; the remap is monotone, which keeps
+        each row's ``sorted(d.items())`` order — and therefore the CSR data
+        order every kernel accumulates in — exactly what a from-scratch
+        build over the compacted state would produce.
+        """
+        m = int(keep.shape[0])
+        self._cpu_buf[:m] = self._cpu_buf[: self._width][keep]
+        self._width = m
+        self.cpu_need = self._cpu_buf[:m]
+        for node, d in enumerate(self.rows):
+            if d:
+                self.rows[node] = {
+                    int(new_of_old[j]): mult for j, mult in d.items()}
+                self._dirty.add(node)
         self._snap = None
 
     def csr(self) -> CSRIncidence:

@@ -7,21 +7,33 @@ advance and the next-event computation are single vectorized expressions.
 Task→node mappings stay as per-job lists (ragged, policy-produced) in
 ``mappings``.
 
-Policy modules (``core.greedy``, ``sched.components``) read jobs through
-``JobView``: a zero-copy proxy whose reads/writes go straight to the arrays.
+Policy modules (``core.greedy``, ``core.mcb8``, ``sched.components``) read
+jobs through ``JobView``: a zero-copy proxy whose reads/writes go straight
+to the arrays.
 
 ``EngineState.from_trace`` is the array-native constructor: a columnar
 :class:`repro_torch.workloads.trace.Trace` shares its layout with this
 state, so the hot-loop arrays ingest whole columns with no per-spec loop.
-The running / in-system index sets are maintained incrementally by
-``set_status`` (sorted lists mirroring ``np.nonzero`` output exactly), so
-every hot-loop scan is O(active).
+
+Scale model (long streamed logs):
+
+* Arrays live in geometrically doubled capacity buffers; the public
+  attributes are length-``n`` views, so online ``extend`` is amortized
+  O(1) per job instead of a full reallocation per batch.
+* The running / in-system index sets are maintained incrementally by
+  ``set_status`` (sorted lists mirroring ``np.nonzero`` output exactly),
+  so every hot-loop scan is O(active), not O(jobs ever submitted).
+* ``compact()`` evicts COMPLETED/CANCELLED rows from the SoA arrays, the
+  view list, and the node-incidence CSR, folding the per-job quantities
+  ``Engine._result`` needs into the append-only :class:`RetiredLog`.
+  Merged back in global-arrival order, the retired log reproduces the
+  uncompacted metric accumulation **bit for bit** (same float op order).
 """
 from __future__ import annotations
 
 from bisect import bisect_left
 from functools import lru_cache
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -39,6 +51,7 @@ from .job import (
 __all__ = [
     "EngineState",
     "JobView",
+    "RetiredLog",
     "S_NOT_ARRIVED",
     "S_PENDING",
     "S_RUNNING",
@@ -67,6 +80,23 @@ _STATUS_STR = {
 }
 _STATUS_CODE = {v: k for k, v in _STATUS_STR.items()}
 
+# per-job SoA columns managed by the capacity buffers (order is the
+# copy/compact order; values never depend on it)
+_COLS = (
+    ("proc_time", np.float64),
+    ("proc_truth", np.float64),
+    ("cpu_need", np.float64),
+    ("demand", np.float64),
+    ("vt", np.float64),
+    ("yld", np.float64),
+    ("penalty_until", np.float64),
+    ("completed_at", np.float64),
+    ("status", np.int8),
+    ("n_pmtn", np.int64),
+    ("n_mig", np.int64),
+    ("gidx", np.int64),
+)
+
 
 class JobView:
     """Job object view over one row of an ``EngineState``.
@@ -74,6 +104,10 @@ class JobView:
     Provides exactly the attributes/methods the policy modules read
     (``spec``, ``vt``, ``yld``, ``status``, ``mapping``, ``penalty_until``,
     ``priority_key`` …); assignments write through to the arrays.
+
+    ``i`` is the *dense* row index and is rewritten in place by
+    ``EngineState.compact`` — holders keep their object reference (batch
+    queues, snapshots-in-progress) and never see a stale row.
     """
 
     __slots__ = ("_st", "i", "spec")
@@ -154,19 +188,148 @@ class JobView:
         return now - self.spec.release
 
     def priority(self, now: float) -> float:
-        """flow_time / virtual_time**2 (paper §4.1); +inf when vt == 0."""
         vt = self.vt
         if vt <= 0.0:
             return np.inf
         return self.flow_time(now) / (vt * vt)
 
     def priority_key(self, now: float):
-        """Sort key: larger = higher priority; ties by submission order
-        (earlier submission wins, §4.1)."""
         return (self.priority(now), -self.spec.jid)
+
+    # ---- simulator-side quantities --------------------------------------
+    def remaining_vt(self) -> float:
+        # estimate-based (policies never see the truth column); the job
+        # may run past its estimate, so clamp at zero
+        return max(0.0, self.spec.proc_time - self.vt)
+
+
+class RetiredLog:
+    """Streaming per-job accumulators for rows evicted by ``compact()``.
+
+    Stores, per retired job, exactly the raw inputs ``Engine._result``
+    needs — global arrival index, jid, release, completion time (NaN marks
+    cancelled), executed processing time, and the precomputed work term
+    ``n_tasks * proc_truth * cpu_need`` (that exact multiply order) — so
+    the final metrics can be re-accumulated in the original global order
+    with bit-identical float arithmetic.
+    """
+
+    _RCOLS = (
+        ("gidx", np.int64),
+        ("jid", np.int64),
+        ("release", np.float64),
+        ("completed_at", np.float64),
+        ("proc_truth", np.float64),
+        ("work", np.float64),
+    )
+
+    __slots__ = ("_n", "_cap", "_bufs", "n_cancelled", "n_noisy",
+                 "_jid_sorted", "_jid_dirty")
+
+    def __init__(self) -> None:
+        self._n = 0
+        self._cap = 0
+        self._bufs: Dict[str, np.ndarray] = {
+            name: np.empty(0, dtype=dt) for name, dt in self._RCOLS}
+        self.n_cancelled = 0
+        self.n_noisy = 0
+        self._jid_sorted = np.empty(0, dtype=np.int64)
+        self._jid_dirty = False
+
+    def __len__(self) -> int:
+        return self._n
+
+    @property
+    def n_completed(self) -> int:
+        return self._n - self.n_cancelled
+
+    def col(self, name: str) -> np.ndarray:
+        return self._bufs[name][: self._n]
+
+    def _ensure(self, need: int) -> None:
+        if need <= self._cap:
+            return
+        cap = max(need, 2 * self._cap, 1024)
+        for name, dt in self._RCOLS:
+            buf = np.empty(cap, dtype=dt)
+            buf[: self._n] = self._bufs[name][: self._n]
+            self._bufs[name] = buf
+        self._cap = cap
+
+    def append(self, st: "EngineState", idx: np.ndarray) -> None:
+        """Fold the (about-to-be-evicted) rows ``idx`` of ``st`` in."""
+        k = int(idx.shape[0])
+        if k == 0:
+            return
+        self._ensure(self._n + k)
+        n0, n1 = self._n, self._n + k
+        b = self._bufs
+        b["gidx"][n0:n1] = st.gidx[idx]
+        b["completed_at"][n0:n1] = st.completed_at[idx]
+        b["proc_truth"][n0:n1] = st.proc_truth[idx]
+        jid = b["jid"]
+        rel = b["release"]
+        wrk = b["work"]
+        pt = st.proc_truth
+        est = st.proc_time
+        status = st.status
+        nc = nz = 0
+        for j, i in enumerate(idx.tolist()):
+            s = st.specs[i]
+            jid[n0 + j] = s.jid
+            rel[n0 + j] = s.release
+            if int(status[i]) == S_CANCELLED:
+                wrk[n0 + j] = 0.0
+                nc += 1
+            else:
+                # exact op order of Engine._result's total_work term
+                wrk[n0 + j] = s.n_tasks * float(pt[i]) * s.cpu_need
+            if pt[i] != est[i]:
+                nz += 1
+        self.n_cancelled += nc
+        self.n_noisy += nz
+        self._n = n1
+        self._jid_dirty = True
+
+    def contains(self, jids: Sequence[int]) -> List[int]:
+        """Subset of ``jids`` already retired (for submit dup-checks)."""
+        if self._n == 0:
+            return []
+        if self._jid_dirty:
+            # stable sort exploits the sorted-runs structure of merged logs
+            self._jid_sorted = np.sort(self.col("jid"), kind="stable")
+            self._jid_dirty = False
+        q = np.asarray(list(jids), dtype=np.int64)
+        if q.size == 0:
+            return []
+        srt = self._jid_sorted
+        pos = np.minimum(np.searchsorted(srt, q), srt.size - 1)
+        return [int(x) for x in q[srt[pos] == q]]
+
+    # ---- snapshot plumbing ----------------------------------------------
+    def payload(self) -> dict:
+        out = {name: self.col(name).tolist() for name, _ in self._RCOLS}
+        out["n_cancelled"] = int(self.n_cancelled)
+        out["n_noisy"] = int(self.n_noisy)
+        return out
+
+    @classmethod
+    def from_payload(cls, payload: dict) -> "RetiredLog":
+        log = cls()
+        n = len(payload["gidx"])
+        log._ensure(n)
+        for name, dt in cls._RCOLS:
+            log._bufs[name][:n] = np.asarray(payload[name], dtype=dt)
+        log._n = n
+        log.n_cancelled = int(payload["n_cancelled"])
+        log.n_noisy = int(payload.get("n_noisy", 0))
+        log._jid_dirty = True
+        return log
 
 
 def _sorted_add(lst: List[int], i: int) -> None:
+    """Duplicate-safe insort (tolerates out-of-band status-array writes:
+    the sets then stay merely incomplete, never corrupted)."""
     p = bisect_left(lst, i)
     if p >= len(lst) or lst[p] != i:
         lst.insert(p, i)
@@ -191,6 +354,8 @@ class EngineState:
 
     The job index is arrival order (specs sorted by ``(release, jid)``);
     every policy-facing iteration below yields views in index order.
+    Under compaction the *global* arrival index lives in ``gidx`` (strictly
+    increasing over the live rows) while the dense index stays contiguous.
     """
 
     def __init__(self, specs: Sequence[JobSpec], n_nodes: int):
@@ -214,7 +379,7 @@ class EngineState:
         st = cls.__new__(cls)
         st.specs = list(_specs_of(trace))
         st.proc_time = trace.proc_time.astype(np.float64)     # writable copy
-        truth = trace.proc_truth
+        truth = getattr(trace, "proc_truth", None)
         st.proc_truth = (truth.astype(np.float64) if truth is not None
                          else st.proc_time.copy())
         st.cpu_need = trace.cpu_need.astype(np.float64)
@@ -231,11 +396,21 @@ class EngineState:
         self.status = np.full(n, S_NOT_ARRIVED, dtype=np.int8)
         self.n_pmtn = np.zeros(n, dtype=np.int64)
         self.n_mig = np.zeros(n, dtype=np.int64)
+        self.gidx = np.arange(n, dtype=np.int64)
         self.mappings: List[Optional[List[int]]] = [None] * n
         self.views = [JobView(self, i) for i in range(n)]
-        self.n_total = n
+
+        # lifetime accounting that survives compaction
+        self.n_total = n                       # jobs ever submitted
         self.first_release = min(
             (s.release for s in self.specs), default=np.inf)
+        self.retired = RetiredLog()
+
+        # adopt the freshly built arrays as capacity buffers (no copy);
+        # extend() grows them geometrically from here
+        self._cap = n
+        self._bufs = {name: getattr(self, name) for name, _ in _COLS}
+        self.grow_count = 0                    # buffer reallocations (tests)
 
         self.pool = NodePool(n_nodes)
         # job×node CSR incidence of the running tasks, kept consistent by
@@ -251,20 +426,88 @@ class EngineState:
         self._dvers = 0
         self._dsum: Optional[float] = None
         self._dsum_vers = -1
-        st = self.status
-        self._run: List[int] = np.nonzero(st == S_RUNNING)[0].tolist()
-        self._ins: List[int] = np.nonzero(
-            (st > S_NOT_ARRIVED) & (st < S_COMPLETED))[0].tolist()
-        self._run_arr: Optional[np.ndarray] = None
-        self._ins_arr: Optional[np.ndarray] = None
+        self.rebuild_index_sets()
+
+    # ------------------------------------------------------------------ #
+    # capacity management                                                 #
+    # ------------------------------------------------------------------ #
+    def _ensure_capacity(self, need: int) -> None:
+        if need <= self._cap:
+            return
+        n = len(self.specs)
+        cap = max(need, 2 * self._cap, 16)
+        for name, dt in _COLS:
+            buf = np.empty(cap, dtype=dt)
+            buf[:n] = self._bufs[name][:n]
+            self._bufs[name] = buf
+        self._cap = cap
+        self.grow_count += 1
+
+    def _reslice(self, n: int) -> None:
+        for name, _ in _COLS:
+            setattr(self, name, self._bufs[name][:n])
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
+
+    # ------------------------------------------------------------------ #
+    # online ingest (streaming sessions)                                  #
+    # ------------------------------------------------------------------ #
+    def extend(self, specs: Sequence[JobSpec]) -> List[int]:
+        """Append jobs to the SoA state mid-simulation (true online
+        arrivals for :class:`repro_torch.sched.session.SimSession`).
+
+        New rows start as ``S_NOT_ARRIVED``; the per-spec column values are
+        computed by the exact expressions ``__init__`` uses, so a state
+        grown in batches is bit-identical to one built in a single shot.
+        Appends land in geometrically doubled buffers (amortized O(1) per
+        job — no per-batch reallocation).  Returns the dense indices
+        assigned to the new jobs.
+        """
+        specs = list(specs)
+        if not specs:
+            return []
+        base = len(self.specs)
+        k = len(specs)
+        self._ensure_capacity(base + k)
+        tail_proc = np.array([s.proc_time for s in specs], dtype=np.float64)
+        tail_cpu = np.array([s.cpu_need for s in specs], dtype=np.float64)
+        tail_dem = np.array(
+            [s.n_tasks * s.cpu_need for s in specs], dtype=np.float64)
+        b = self._bufs
+        sl = slice(base, base + k)
+        b["proc_time"][sl] = tail_proc
+        # new rows start clairvoyant
+        b["proc_truth"][sl] = tail_proc
+        b["cpu_need"][sl] = tail_cpu
+        b["demand"][sl] = tail_dem
+        b["vt"][sl] = 0.0
+        b["yld"][sl] = 0.0
+        b["penalty_until"][sl] = -np.inf
+        b["completed_at"][sl] = np.nan
+        b["status"][sl] = S_NOT_ARRIVED
+        b["n_pmtn"][sl] = 0
+        b["n_mig"][sl] = 0
+        b["gidx"][sl] = np.arange(
+            self.n_total, self.n_total + k, dtype=np.int64)
+        self._reslice(base + k)
+        self.n_total += k
+        self.first_release = min(
+            self.first_release, min(s.release for s in specs))
+        self.specs.extend(specs)
+        self.mappings.extend([None] * k)
+        self.views.extend(JobView(self, base + j) for j in range(k))
+        self.inc.extend(tail_cpu)
+        return list(range(base, base + k))
 
     # ------------------------------------------------------------------ #
     # incremental index sets                                              #
     # ------------------------------------------------------------------ #
     def set_status(self, i: int, code: int) -> None:
         """The single write path for status transitions: keeps the sorted
-        running / in-system index lists in sync so the hot-loop scans stay
-        O(active)."""
+        running / in-system index lists (and retired count) in sync so the
+        hot-loop scans stay O(active)."""
         i = int(i)
         old = int(self.status[i])
         if old == code:
@@ -287,11 +530,30 @@ class EngineState:
             else:
                 _sorted_drop(self._run, i)
             self._run_arr = None
+        if code >= S_COMPLETED and old < S_COMPLETED:
+            self._n_retired += 1
 
     def set_demand(self, i: int, value: float) -> None:
         """Demand writes (job resize) invalidate the cached in-system sum."""
         self.demand[int(i)] = value
         self._dvers += 1
+
+    def rebuild_index_sets(self) -> None:
+        """Recompute the incremental sets from the status array — for
+        wholesale writes (snapshot restore) and after compaction."""
+        st = self.status
+        self._run: List[int] = np.nonzero(st == S_RUNNING)[0].tolist()
+        self._ins: List[int] = np.nonzero(
+            (st > S_NOT_ARRIVED) & (st < S_COMPLETED))[0].tolist()
+        self._run_arr: Optional[np.ndarray] = None
+        self._ins_arr: Optional[np.ndarray] = None
+        self._n_retired = int((st >= S_COMPLETED).sum())
+        self._dvers += 1
+
+    @property
+    def n_retired_rows(self) -> int:
+        """Live COMPLETED/CANCELLED rows currently evictable by compact()."""
+        return self._n_retired
 
     def in_system_demand(self) -> float:
         """Cached ``demand[in_system].sum()`` — recomputed (by the exact
@@ -327,6 +589,56 @@ class EngineState:
         return bool(self._ins)
 
     # ------------------------------------------------------------------ #
+    # compaction                                                          #
+    # ------------------------------------------------------------------ #
+    def compact(self, protect: Optional[Sequence[int]] = None
+                ) -> Optional[np.ndarray]:
+        """Evict COMPLETED/CANCELLED rows from the SoA arrays.
+
+        Their result-bearing quantities are folded into ``self.retired``
+        (see :class:`RetiredLog`); surviving rows slide down in order, so
+        both the dense index and ``gidx`` stay strictly increasing.  Every
+        ``JobView`` of a surviving row has its ``.i`` rewritten *in place*
+        (object identity preserved for policy queues), and the node
+        incidence is remapped.  ``protect`` lists dense indices to keep
+        regardless of status (e.g. rows with a pending arrival-heap entry,
+        whose pop must still happen).
+
+        Returns the old→new dense index map (``-1`` for evicted rows), or
+        ``None`` if nothing was evictable.
+        """
+        status = self.status
+        n = status.shape[0]
+        keep_mask = status < S_COMPLETED
+        if protect is not None and len(protect):
+            keep_mask[np.asarray(protect, dtype=np.intp)] = True
+        if bool(keep_mask.all()):
+            return None
+        keep = np.nonzero(keep_mask)[0]
+        evict = np.nonzero(~keep_mask)[0]
+        self.retired.append(self, evict)
+        m = int(keep.shape[0])
+        new_of_old = np.full(n, -1, dtype=np.int64)
+        new_of_old[keep] = np.arange(m, dtype=np.int64)
+        for name, _ in _COLS:
+            buf = self._bufs[name]
+            buf[:m] = buf[:n][keep]
+        self._reslice(m)
+        keep_list = keep.tolist()
+        self.specs = [self.specs[i] for i in keep_list]
+        self.mappings = [self.mappings[i] for i in keep_list]
+        old_views = self.views
+        views = []
+        for newi, oldi in enumerate(keep_list):
+            v = old_views[oldi]
+            v.i = newi
+            views.append(v)
+        self.views = views
+        self.inc.compact(keep, new_of_old)
+        self.rebuild_index_sets()
+        return new_of_old
+
+    # ------------------------------------------------------------------ #
     # vectorized hot-loop kernels                                         #
     # ------------------------------------------------------------------ #
     def next_completion_time(self) -> float:
@@ -349,9 +661,12 @@ class EngineState:
 
         Besides the absolute ``rem <= _EPS`` cut, a job whose *projected
         completion time* rounds to ``<= now`` is finished too: at large
-        simulation times (``eps(now) > 1e-9``) the event loop cannot
-        represent a later timestamp for it, so leaving it running would spin
-        the loop at constant ``now`` forever.
+        simulation times (multi-month traces, ``eps(now) > 1e-9``) the
+        event loop cannot represent a later timestamp for it, so leaving
+        it running would spin the loop at constant ``now`` forever.  For
+        ``now`` below ~4e6 s the extra cut is unreachable (the projection
+        adds at least ``rem > _EPS`` to ``now``), so small-trace runs are
+        bit-identical with or without it.
         """
         run = self.running_indices()
         if run.size == 0:
@@ -383,7 +698,8 @@ class EngineState:
         contrib = self.yld[run] * self.demand[run]
         if not inner_mask.any():
             # fast path (the common case): no penalty expiry strictly inside
-            # the window, so u(t) is constant on [now, t_next)
+            # the window, so u(t) is constant on [now, t_next) — exactly the
+            # single segment the cut machinery below would produce.
             u = float(contrib[pen <= self.now + _EPS].sum())
             dt = t_next - self.now
             self.util_integral += u * dt

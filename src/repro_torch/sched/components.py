@@ -50,7 +50,10 @@ __all__ = [
     "compose",
     "compose_from_spec",
     "register_policy",
+    "registered_policies",
     "resolve_policy",
+    "batch_state_payload",
+    "batch_state_from_payload",
 ]
 
 
@@ -272,6 +275,12 @@ def register_policy(name: str):
         return fac
 
     return _register
+
+
+def registered_policies() -> Dict[str, str]:
+    """``{name: description}`` of every registered composition."""
+    return {name: (fac.__doc__ or "").strip()
+            for name, fac in sorted(_POLICIES.items())}
 
 
 def resolve_policy(name: str) -> Optional[Policy]:
@@ -506,6 +515,41 @@ def _batch_state(p: ComposedPolicy) -> _BatchState:
     if st is None:
         st = p.shared["batch"] = _BatchState(p.e.params.n_nodes)
     return st
+
+
+def batch_state_payload(bs: _BatchState) -> Dict[str, object]:
+    """JSON-able form of a :class:`_BatchState` for session snapshots.
+
+    Queued jobs are referenced by their dense engine index; ``free`` is
+    stored in its live heap layout verbatim, so a restored state pops nodes
+    in the identical order.
+    """
+    return {
+        "queue": [js.i for js in bs.queue],
+        "free": list(bs.free),
+        "running": [list(r) for r in bs.running],
+        "dirty": bs.dirty,
+        "excl_owner": sorted(bs.excl_owner.items()),
+        "frac_jobs": sorted((jid, list(m)) for jid, m in bs.frac_jobs.items()),
+        "frac_count": sorted((n, c) for n, c in bs.frac_count.items() if c),
+    }
+
+
+def batch_state_from_payload(payload: Dict[str, object], views,
+                             n_nodes: int) -> _BatchState:
+    """Inverse of :func:`batch_state_payload` against a restored engine's
+    ``state.views``."""
+    bs = _BatchState(n_nodes)
+    bs.queue = deque(views[int(i)] for i in payload["queue"])
+    bs.free = [int(n) for n in payload["free"]]
+    bs.running = [(float(e), int(j), int(n)) for e, j, n in payload["running"]]
+    bs.dirty = bool(payload["dirty"])
+    bs.excl_owner = {int(n): int(j) for n, j in payload["excl_owner"]}
+    bs.frac_jobs = {int(j): [int(x) for x in m]
+                    for j, m in payload["frac_jobs"]}
+    bs.frac_count = Counter({int(n): int(c)
+                             for n, c in payload["frac_count"]})
+    return bs
 
 
 @register_component("submit", "fcfs-queue")

@@ -55,6 +55,10 @@ class SimParams:
     stretch_tau: float = 10.0       # bounded-stretch threshold (s)
     max_events: int = 20_000_000    # hard event-loop bound
     on_max_events: str = "raise"    # "raise" | "truncate"
+    # compact COMPLETED/CANCELLED rows out of the SoA state whenever at
+    # least this many are evictable (0 = never; results are bit-identical
+    # either way — see EngineState.compact / RetiredLog)
+    compact_interval: int = 0
 
     def __post_init__(self) -> None:
         if self.max_events < 1:
@@ -62,6 +66,8 @@ class SimParams:
         if self.on_max_events not in ("raise", "truncate"):
             raise ValueError(f"on_max_events must be 'raise' or 'truncate', "
                              f"got {self.on_max_events!r}")
+        if self.compact_interval < 0:
+            raise ValueError("compact_interval must be >= 0")
 
 
 @dataclass
@@ -164,19 +170,26 @@ def make_policy(spec: PolicySpec) -> Policy:
 
 def resolve_policy_arg(
     policy: "PolicySpec | str | Policy",
-) -> Tuple[Optional[PolicySpec], Policy]:
-    """Resolve any policy argument to ``(spec, policy_object)``: a Policy
-    passes through, a registered composition name builds a fresh
-    composition, anything else parses as the policy grammar."""
+) -> Tuple[Optional[PolicySpec], Policy, Optional[str]]:
+    """Resolve any policy argument to ``(spec, policy_object, ref)``.
+
+    ``ref`` is a string that rebuilds an equivalent fresh policy later (the
+    canonical grammar spelling or a registered composition name) — it is
+    what session snapshots persist.  Raw :class:`Policy` instances resolve
+    to ``ref=None`` unless their ``.name`` is a registered composition.
+    """
     if isinstance(policy, Policy):
-        return None, policy
+        from .components import registered_policies
+        name = getattr(policy, "name", None)
+        ref = name if name in registered_policies() else None
+        return None, policy, ref
     if isinstance(policy, str):
         from .components import resolve_policy
         named = resolve_policy(policy)
         if named is not None:
-            return None, named
+            return None, named, policy
     spec = parse_policy(policy) if isinstance(policy, str) else policy
-    return spec, make_policy(spec)
+    return spec, make_policy(spec), spec.name
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +211,8 @@ class Engine:
         # ``allocate(inc: CSRIncidence, cols, opt) -> yields``.  None = the
         # host numpy path.
         self.alloc_backend = alloc_backend
-        self.policy_spec, self.policy = resolve_policy_arg(policy)
+        self.policy_spec, self.policy, self.policy_ref = resolve_policy_arg(
+            policy)
         if isinstance(specs, Trace):
             # array-native ingest: columns feed the SoA state directly
             self.state = EngineState.from_trace(specs, self.params.n_nodes)
@@ -376,24 +390,61 @@ class Engine:
 
     # ------------------------------------------------------------------ #
     def _result(self, hit_cap: bool = False, partial: bool = False,
-                sim_wall_s: float = 0.0) -> SimResult:
-        """Metrics over the completed jobs, accumulated in arrival order.
-        ``partial`` permits uncompleted jobs (a mid-run result); a finished
-        run still treats them as a deadlock unless the event cap truncated
-        it."""
+                sim_wall_s: float = 0.0, light: bool = False) -> SimResult:
+        """Metrics over the completed jobs.  ``partial`` permits uncompleted
+        jobs (a mid-run session result); a finished run still treats them as
+        a deadlock unless the event cap truncated it.
+
+        Under compaction the evicted rows live in ``st.retired``; the two
+        populations are merged back in global-arrival (``gidx``) order, so
+        every float accumulation below performs the identical operation
+        sequence as the uncompacted single loop — bit-identical results.
+        ``light`` skips materializing the O(jobs) per-job dicts (aggregates
+        only, computed by the same ops) for bounded-memory long runs.
+        """
         from .metrics import bounded_stretch
 
         p = self.params
         st = self.state
         completions: Dict[int, float] = {}
         stretches: Dict[int, float] = {}
+        ret = st.retired
+        if len(ret):
+            order = np.argsort(ret.col("gidx"), kind="stable")
+            r_gidx = ret.col("gidx")[order].tolist()
+            r_jid = ret.col("jid")[order].tolist()
+            r_rel = ret.col("release")[order].tolist()
+            r_done = ret.col("completed_at")[order].tolist()
+            r_pt = ret.col("proc_truth")[order].tolist()
+            r_work = ret.col("work")[order].tolist()
+        else:
+            r_gidx = r_jid = r_rel = r_done = r_pt = r_work = []
+        n_ret = len(r_gidx)
+        specs = st.specs
         status = st.status
         pt_arr = st.proc_truth
         cat = st.completed_at
+        live_gidx = st.gidx.tolist()
         svals: List[float] = []
         last = -np.inf                  # running max over completion times
         total_work = 0                  # int start, exactly like sum(genexp)
-        for i, s in enumerate(st.specs):
+        ri = 0
+        for i, s in enumerate(specs):
+            g = live_gidx[i]
+            while ri < n_ret and r_gidx[ri] < g:
+                done = r_done[ri]
+                if done == done:        # NaN marks cancelled (no metrics)
+                    # stretch normalizes by the *executed* time
+                    sv = bounded_stretch(done - r_rel[ri], r_pt[ri],
+                                         p.stretch_tau)
+                    if not light:
+                        completions[r_jid[ri]] = done
+                        stretches[r_jid[ri]] = sv
+                    svals.append(sv)
+                    if done > last:
+                        last = done
+                    total_work = total_work + r_work[ri]
+                ri += 1
             if int(status[i]) == S_CANCELLED:
                 continue                # withdrawn: never in the metrics
             c = cat[i]
@@ -407,17 +458,29 @@ class Engine:
                     s.n_tasks * float(pt_arr[i]) * s.cpu_need)
                 continue
             c = float(c)
-            # stretch normalizes by the *executed* time
             sv = bounded_stretch(c - s.release, float(pt_arr[i]),
                                  p.stretch_tau)
-            completions[s.jid] = c
-            stretches[s.jid] = sv
+            if not light:
+                completions[s.jid] = c
+                stretches[s.jid] = sv
             svals.append(sv)
             if c > last:
                 last = c
             # executed CPU-seconds — the same multiply order as
             # JobSpec.total_work
             total_work = total_work + s.n_tasks * float(pt_arr[i]) * s.cpu_need
+        while ri < n_ret:
+            done = r_done[ri]
+            if done == done:
+                sv = bounded_stretch(done - r_rel[ri], r_pt[ri], p.stretch_tau)
+                if not light:
+                    completions[r_jid[ri]] = done
+                    stretches[r_jid[ri]] = sv
+                svals.append(sv)
+                if done > last:
+                    last = done
+                total_work = total_work + r_work[ri]
+            ri += 1
         first = st.first_release if st.n_total else 0.0
         last = last if svals else 0.0
         makespan = max(0.0, last - first)
@@ -447,7 +510,7 @@ class Engine:
             makespan=makespan,
             events=self._events,
             hit_max_events=hit_cap,
-            n_cancelled=int((st.status == S_CANCELLED).sum()),
+            n_cancelled=int((st.status == S_CANCELLED).sum()) + ret.n_cancelled,
             final_time=st.now,
             sim_wall_s=sim_wall_s,
         )

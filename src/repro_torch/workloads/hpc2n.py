@@ -26,8 +26,8 @@ import numpy as np
 
 from ..core.job import JobSpec
 
-__all__ = ["parse_swf", "iter_swf", "hpc2n_preprocess", "hpc2n_like_trace",
-           "SwfJob", "NODE_MEM_GB", "N_NODES"]
+__all__ = ["parse_swf", "iter_swf", "iter_swf_windows", "hpc2n_preprocess",
+           "hpc2n_like_trace", "SwfJob", "NODE_MEM_GB", "N_NODES"]
 
 NODE_MEM_GB = 2.0
 N_NODES = 120
@@ -73,12 +73,19 @@ def parse_swf(text_or_path) -> List[SwfJob]:
     return list(iter_swf(text_or_path))
 
 
-def hpc2n_preprocess(swf_jobs: Sequence[SwfJob]) -> List[JobSpec]:
-    """§5.3.1 transformation of swf rows into DFRS job specs (jids
-    re-assigned contiguously in submit order)."""
+def hpc2n_preprocess(swf_jobs: Sequence[SwfJob],
+                     start_jid: int = 0) -> List[JobSpec]:
+    """§5.3.1 transformation of swf rows into DFRS job specs.
+
+    jids are re-assigned contiguously in submit order, from ``start_jid``:
+    a chunked caller (:func:`iter_swf_windows`) continues the numbering of
+    an earlier chunk and reproduces exactly the jids a whole-log pass
+    assigns.
+    """
     specs: List[JobSpec] = []
     node_kb = NODE_MEM_GB * 1024 * 1024
-    for k, j in enumerate(sorted(swf_jobs, key=lambda j: j.submit)):
+    for k, j in enumerate(sorted(swf_jobs, key=lambda j: j.submit),
+                          start=start_jid):
         per_proc = max(j.used_mem_kb, j.req_mem_kb)
         mem_frac = max(0.10, per_proc / node_kb) if per_proc > 0 else 0.10
         mem_frac = min(1.0, mem_frac)
@@ -97,6 +104,56 @@ def hpc2n_preprocess(swf_jobs: Sequence[SwfJob]) -> List[JobSpec]:
             )
         )
     return specs
+
+
+def iter_swf_windows(text_or_path, window_s: float, n_jobs: int = 0):
+    """Stream an swf log as per-release-window ``List[JobSpec]`` chunks.
+
+    Reads the log line by line (never materializing it) and yields the
+    §5.3.1-preprocessed specs of each half-open submit-time window
+    ``[lo + k*window_s, lo + (k+1)*window_s)`` anchored at the first
+    accepted row's submit time; empty windows are skipped.  ``n_jobs``
+    caps the number of rows taken (0 = the whole log), counted *before*
+    any downstream width filter — the same prefix semantics as the
+    materialized ``swf`` workload kind.
+
+    Because jids are re-assigned in submit order, the log must already be
+    sorted by submit time (true of the cleaned Parallel Workloads Archive
+    logs).  An out-of-order row raises — use the materialized
+    ``swf:<path>`` kind for unsorted logs.
+
+    Concatenating the chunks reproduces ``hpc2n_preprocess(parse_swf(x))``
+    row for row: ``sorted()`` is a stable identity on each already-sorted
+    chunk, and every per-spec value depends only on its own row and jid.
+    """
+    if not window_s > 0.0:
+        raise ValueError(f"window_s must be > 0, got {window_s}")
+    buf: List[SwfJob] = []
+    taken = 0           # rows accepted so far == jids already assigned
+    lo = None           # first accepted submit time (window anchor)
+    cur = None          # window index of the rows in buf
+    last = -np.inf
+    for row in iter_swf(text_or_path):
+        if row.submit < last:
+            raise ValueError(
+                "swf log is not sorted by submit time (row jid "
+                f"{row.jid}: submit {row.submit} after {last}); streaming "
+                "ingest needs a sorted log — use the materialized "
+                "'swf:<path>' workload kind instead")
+        last = row.submit
+        if lo is None:
+            lo = row.submit
+        k = int((row.submit - lo) // window_s)
+        if buf and k != cur:
+            yield hpc2n_preprocess(buf, start_jid=taken)
+            taken += len(buf)
+            buf = []
+        cur = k
+        buf.append(row)
+        if n_jobs and taken + len(buf) >= n_jobs:
+            break
+    if buf:
+        yield hpc2n_preprocess(buf, start_jid=taken)
 
 
 def hpc2n_like_trace(

@@ -23,9 +23,13 @@ Built-in kinds:
 * ``"swf"``    — a real Parallel Workloads Archive log (``params["path"]``,
   spelled ``swf:<path>``) through ``parse_swf`` + the same §5.3.1
   preprocessing; ``n_jobs`` caps the prefix taken (0 = whole log).
+* ``"swf-stream"`` — the same log and preprocessing as ``swf``, with a
+  native streamer for :func:`stream_trace`: the log is parsed in
+  submit-time windows (``params["window"]`` seconds, default one day) and
+  never held whole.
 
-The streaming log kind ``swf-stream`` and the TPU job mix ``tpu`` are not
-ported yet: naming them raises ``NotImplementedError`` (see ROADMAP.md).
+The TPU job mix ``tpu`` is not ported yet: naming it raises
+``NotImplementedError`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,13 +39,15 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 
-from .hpc2n import hpc2n_like_trace, hpc2n_preprocess, parse_swf
+from .hpc2n import (hpc2n_like_trace, hpc2n_preprocess, iter_swf_windows,
+                    parse_swf)
 from .lublin import lublin_trace, scale_to_load
 from .trace import Trace
 
 __all__ = [
     "WorkloadSpec", "WorkloadKind", "register_workload", "list_workloads",
-    "workload_kind", "parse_workload", "make_trace_ir",
+    "workload_kind", "parse_workload", "make_trace_ir", "stream_trace",
+    "DEFAULT_STREAM_WINDOW_S",
 ]
 
 _SCALARS = (str, int, float, bool)
@@ -49,7 +55,6 @@ ParamsLike = Union[Mapping, Tuple[Tuple[str, object], ...]]
 
 #: workload kinds still to port (ROADMAP.md), with what each needs
 _UNPORTED_KINDS = {
-    "swf-stream": "the session's stream hook",
     "tpu": "the roofline job-type bridge (workloads.jobgen)",
 }
 
@@ -66,6 +71,9 @@ class WorkloadKind:
     params: Tuple[str, ...] = ()     # accepted params keys
     required: Tuple[str, ...] = ()   # params keys that must be present
     path_param: Optional[str] = None  # param filled by a "kind:<arg>" spelling
+    #: optional native streamer ``(spec, window_s) -> Iterator[Trace]``;
+    #: kinds without one stream via materialize-then-``Trace.iter_chunks``
+    stream: Optional[Callable[["WorkloadSpec", float], object]] = None
 
 
 _REGISTRY: Dict[str, WorkloadKind] = {}
@@ -79,8 +87,11 @@ def register_workload(
     params: Tuple[str, ...] = (),
     required: Tuple[str, ...] = (),
     path_param: Optional[str] = None,
+    stream: Optional[Callable] = None,
 ):
-    """Decorator: register a ``spec -> Trace`` generator under ``name``."""
+    """Decorator: register a ``spec -> Trace`` generator under ``name``.
+    ``stream`` optionally binds a native ``(spec, window_s) -> chunks``
+    streamer (see :func:`stream_trace`)."""
     if required and not set(required) <= set(params):
         raise ValueError("required params must be a subset of params")
     if path_param is not None and path_param not in params:
@@ -92,7 +103,7 @@ def register_workload(
         _REGISTRY[name] = WorkloadKind(
             name=name, fn=fn, doc=doc or (fn.__doc__ or "").strip(),
             supports_load=supports_load, params=tuple(params),
-            required=tuple(required), path_param=path_param)
+            required=tuple(required), path_param=path_param, stream=stream)
         return fn
     return deco
 
@@ -237,3 +248,49 @@ def _swf(spec: WorkloadSpec) -> Trace:
     if spec.n_jobs and spec.n_jobs < len(trace):
         trace = trace.select(np.arange(spec.n_jobs))
     return trace.select(trace.n_tasks <= spec.n_nodes)
+
+
+#: default streaming window: one day of release time per chunk
+DEFAULT_STREAM_WINDOW_S = 86400.0
+
+
+def stream_trace(spec: WorkloadSpec, window_s: Optional[float] = None):
+    """Yield the workload as release-windowed :class:`Trace` chunks for
+    :meth:`SimSession.stream <repro_torch.sched.session.SimSession.stream>`.
+
+    Kinds registered with a native streamer (``swf-stream``) never
+    materialize the whole log; every other kind falls back to
+    ``make_trace_ir(spec).iter_chunks(window_s)`` — same chunk contract,
+    just without the memory bound.  ``window_s`` defaults to the spec's
+    ``window`` param, else :data:`DEFAULT_STREAM_WINDOW_S`.
+    """
+    if window_s is None:
+        window_s = float(spec.param("window", DEFAULT_STREAM_WINDOW_S))
+    wk = workload_kind(spec.kind)
+    if wk.stream is not None:
+        yield from wk.stream(spec, float(window_s))
+    else:
+        yield from make_trace_ir(spec).iter_chunks(float(window_s))
+
+
+def _swf_stream_chunks(spec: WorkloadSpec, window_s: float):
+    """Native streamer for ``swf-stream``: chunked parse + §5.3.1
+    preprocessing, one submit-time window resident at a time."""
+    for specs in iter_swf_windows(str(spec.param("path")), window_s,
+                                  n_jobs=spec.n_jobs):
+        tr = Trace.from_specs(specs)
+        tr = tr.select(tr.n_tasks <= spec.n_nodes)
+        if len(tr):
+            yield tr
+
+
+@register_workload(
+    "swf-stream", params=("path", "window"), required=("path",),
+    path_param="path", stream=_swf_stream_chunks,
+    doc="streaming variant of 'swf' (swf-stream:<path>): identical trace, "
+        "but stream_trace() parses the log in release windows "
+        "(params[window]= seconds, default one day) without ever "
+        "materializing it; requires a submit-sorted log")
+def _swf_stream(spec: WorkloadSpec) -> Trace:
+    # materialized fallback (simulate/sweep paths): same rows as 'swf'
+    return _swf(spec)

@@ -87,7 +87,7 @@ class Trace:
 
     # Trace is frozen: columns are read-only arrays, attributes final.
     def __setattr__(self, name, value):
-        raise AttributeError("Trace is frozen; build a new one with select()")
+        raise AttributeError("Trace is frozen; build a new one with select() or replace()")
 
     def _validate(self) -> None:
         """The JobSpec invariants, checked once over whole columns."""
@@ -190,6 +190,17 @@ class Trace:
     # ------------------------------------------------------------------ #
     # transforms (always produce a new Trace)                             #
     # ------------------------------------------------------------------ #
+    def replace(self, **columns: np.ndarray) -> "Trace":
+        """New trace with the given columns replaced (others shared).
+        ``proc_truth=None`` drops the truth column."""
+        known = {name for name, _ in COLUMNS} | {"proc_truth"}
+        unknown = set(columns) - known
+        if unknown:
+            raise ValueError(f"unknown Trace columns: {sorted(unknown)}")
+        kw = {name: columns.get(name, getattr(self, name))
+              for name in known}
+        return Trace(**kw)
+
     def select(self, index: np.ndarray) -> "Trace":
         """Row subset / reorder by boolean mask or integer index array."""
         index = np.asarray(index)
@@ -203,6 +214,30 @@ class Trace:
         if (order == np.arange(len(order))).all():
             return self
         return self.select(order)
+
+    def iter_chunks(self, window_s: float):
+        """Yield release-windowed sub-traces for streaming ingest.
+
+        Rows are partitioned into half-open windows
+        ``[lo + k*window_s, lo + (k+1)*window_s)`` anchored at the first
+        release; empty windows are skipped.  Chunks come out in release
+        order (each is a contiguous slice of :meth:`sorted_by_release`),
+        so concatenating them reproduces the sorted trace exactly — the
+        contract :meth:`SimSession.stream
+        <repro_torch.sched.session.SimSession.stream>` relies on for
+        bit-identical results.
+        """
+        if not window_s > 0.0:
+            raise ValueError(f"window_s must be > 0, got {window_s}")
+        if not len(self):
+            return
+        t = self.sorted_by_release()
+        lo = float(t.release[0])
+        bucket = np.floor((t.release - lo) / float(window_s)).astype(np.int64)
+        _, starts = np.unique(bucket, return_index=True)
+        bounds = np.append(starts, len(t))
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            yield t.select(np.arange(a, b))
 
 
 def as_trace(trace_or_specs) -> Trace:

@@ -63,7 +63,8 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
                 "kernels.maxmin_solve", "kernels.alloc_matvec",
                 "kernels.rwkv6_scan", "train.serve", "launch.serve",
                 "core.mcb8", "core.stretch_opt", "workloads.hpc2n",
-                "workloads.registry", "sched.components"):
+                "workloads.registry", "sched.components", "sched.session",
+                "sched.sweep", "core.ioutil", "api"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
@@ -89,6 +90,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         api.simulate(w, "GreedyP */OPT=MIN")
     with pytest.raises(RuntimeError, match="CUDA"):
         run_batched(grid([w], ["GreedyP */OPT=MIN"]))
+
+
+def test_session_entry_points_default_to_cuda_and_raise_without_it():
+    _need_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.open_session(4, "GreedyP */OPT=MIN")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.SimSession("GreedyP */OPT=MIN", api.SimParams(n_nodes=4))
+    ses = api.open_session(4, "GreedyP */OPT=MIN", device="cpu")
+    ses.submit(api.WorkloadSpec("lublin", n_jobs=10, n_nodes=4, seed=0))
+    ses.step(5)
+    snap = ses.snapshot()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.SimSession.restore(snap)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ses.fork()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.run_branches(snap, ["GreedyP */OPT=MIN"])
+    # on the CPU when asked, and with the torch backend attached
+    assert api.SimSession.restore(snap, device="cpu").engine.alloc_backend
+    rec = api.run_branches(snap, ["EASY"], device="cpu").records[0]
+    assert rec["backend"] == "torch" and rec["max_stretch"] >= 1.0
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])

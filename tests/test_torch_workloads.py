@@ -109,13 +109,13 @@ def test_swf_prefix_and_width_filter_act():
 
 def test_registry_lists_the_ported_kinds():
     kinds = set(list_workloads())
-    assert {"hpc2n", "lublin", "swf"} <= kinds
-    assert not kinds & {"swf-stream", "tpu"}
+    assert {"hpc2n", "lublin", "swf", "swf-stream"} <= kinds
+    assert "tpu" not in kinds
     assert workload_kind("lublin").supports_load
     assert workload_kind("swf").path_param == "path"
 
 
-@pytest.mark.parametrize("kind", ["swf-stream", "tpu"])
+@pytest.mark.parametrize("kind", ["tpu"])
 def test_unported_kinds_raise_naming_the_roadmap(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         WorkloadSpec(kind, params={"path": MINI} if kind != "tpu" else {})
