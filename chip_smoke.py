@@ -57,6 +57,35 @@ fails ends the run with exit code 1:
                on the card, each record against its serial host run, the
                same-policy branch also against the original session run
                on; launch counts zeroed before and read after each part;
+4d. slice scenarios — scenario grids, chaos and the autotuner on the card,
+               at phase 4's size, under GreedyP */OPT=MIN unless said:
+               (a) ``run_grid`` on the card over 14 cells — Lublin (phase
+               4's seed 0) under GreedyP */OPT=MIN and GreedyPM
+               */per/OPT=MIN/MINVT=600 crossed with rack_failure,
+               rolling_failures, elastic, arrival_burst+mem_pressure and
+               ptime_noise; EASY x rack_failure; Greedy */OPT=AVG x
+               rolling_failures; the tpu job mix (1000 x 128, load 0.6,
+               seed 0) under GreedyPM */per/OPT=MIN/MINVT=600 and EASY —
+               every record (Theorem-1 bound and degradation included)
+               against the supervised host pool (4 workers, 600 s budget,
+               1 retry, none quarantined); then ``api.sweep`` over the same
+               grid with a record cache, twice: the first pass simulates
+               every cell on the card, the second none (equal records,
+               no launch); (b) a session under the chaos narrator
+               (breakdown, cancel, malleable and noise streams, seed 7) on
+               phase 4's Lublin trace, stepped to its 500th release,
+               saved, loaded and restored on the card, against the
+               uninterrupted card run and the host numpy run in every
+               ``SimResult`` field with the per-job dicts; the injections
+               by kind; (c) the autotuner racing in lockstep on the card:
+               the reference's demo (Lublin 150 x 32, seed 7, load 1.1,
+               nodes 0-7 fail at 2,050 s and join at 7,000 s; one swap at
+               6,000 s, max stretch 301.598467), then a paper-size tuned
+               session under (b)'s breakdown and noise streams, run to
+               80,000 s (a reference-side livelock keeps it from ending),
+               each against the host numpy tuner (decisions and result); the
+               races, rungs and walls; launch counts, shapes, busy share
+               and peak memory by part as in phase 4;
 5. serve kernels — flash attention, flash decode, the RG-LRU scan and the
                RWKV6 WKV recurrence against their plain versions on the
                card, fp32 and bf16, at RecurrentGemma-2B's shapes (a prompt
@@ -100,7 +129,7 @@ fails ends the run with exit code 1:
                ``torch.profiler`` for the card's busy share and kernel time
                by name;
 8. kernels line — per kernel: launches on its path (phase 4 or 7; the
-               allocation kernels' also by part of phase 4c), the
+               allocation kernels' also by part of phases 4c and 4d), the
                largest difference from its plain version, device times
                (CUDA events around a CUDA graph of many launches) of the
                kernel, its plain version and a library call computing the
@@ -165,6 +194,40 @@ BRANCHES = ("GreedyP */OPT=MIN", "GreedyPM */OPT=MIN", "Greedy */OPT=AVG",
             "GreedyPM */per/OPT=MIN/MINVT=600",
             {"policy": "GreedyPM */per/OPT=MIN/MINVT=600", "period": 1200.0},
             "MCB8 */OPT=MIN/MINVT=600", "EASY+OPT=MIN", "EASY", "FCFS")
+
+# phase 4d (slice scenarios): (a) a 14-cell scenario grid on phase 4's
+# Lublin trace (seed 0) and on the tpu job mix (1000 x 128, its default
+# load 0.6, seed 0); the host run is the supervised pool of 4 workers
+SCEN_POLICIES = ("GreedyP */OPT=MIN", "GreedyPM */per/OPT=MIN/MINVT=600")
+SCEN_CHAINS = ("rack_failure", "rolling_failures", "elastic",
+               "arrival_burst+mem_pressure", "ptime_noise")
+TPU_POLICIES = ("GreedyPM */per/OPT=MIN/MINVT=600", "EASY")
+SCEN_WORKERS = 4
+# (b) chaos on phase 4's Lublin trace: ~25 breakdowns over its ~52,000 s
+CHAOS = ("breakdown(mtbf=2e3,repair=8e2)+cancel(rate=1e-4)"
+         "+malleable(rate=1e-4)+noise(sigma=0.3)")
+NARRATOR_SEED = 7
+# (c) the autotuner: the reference's demo (benchmarks/tune_bench.py,
+# BENCH_tune.json), then a paper-size tuned session under (b)'s breakdown
+# and noise streams
+TUNE_JOBS, TUNE_NODES, TUNE_SEED, TUNE_LOAD = 150, 32, 7, 1.1
+TUNE_RACK, TUNE_FAIL_T, TUNE_JOIN_T = tuple(range(8)), 2050.0, 7000.0
+TUNE_PORTFOLIO = ("GreedyP */OPT=MIN", "GreedyPM */per/OPT=MIN/MINVT=600")
+TUNE_INCUMBENT = TUNE_PORTFOLIO[0]
+TUNE_SPEC = ("every=1500;horizon=4000;rungs=2;margin=0.01;dwell=0;"
+             "policies=" + "|".join(TUNE_PORTFOLIO))
+TUNE_DEMO_STRETCH = 301.598467      # BENCH_tune.json, one swap at 6,000 s
+TUNER_SEED = 3
+CHAOS_TUNED = "breakdown(mtbf=2e3,repair=8e2)+noise(sigma=0.3)"
+TUNE_PAPER_SPEC = ("every=5000;horizon=4000;rungs=2;margin=0.01;dwell=0;"
+                   "policies=GreedyP */OPT=MIN|GreedyPM */OPT=MIN|"
+                   "GreedyPM */per/OPT=MIN/MINVT=600")
+# the tuned session runs to this sim time, not to exhaustion: under
+# GreedyPM */OPT=MIN, full-width jobs paused by a breakdown are not placed
+# again when their nodes rejoin, and the breakdown stream keeps the loop
+# armed for ever (in both packages; ROADMAP.md section 3).  (b)'s chaos run
+# ends near 67,400 s.
+TUNE_PAPER_UNTIL_S = 80_000.0
 
 _NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the solve
 
@@ -1029,6 +1092,320 @@ def phase_slice_session(torch, np):
 
 
 # --------------------------------------------------------------------------- #
+# phase 4d: scenario grids, chaos, the autotuner                               #
+# --------------------------------------------------------------------------- #
+def _outcome_diff(np, rec, ref, skip=("wall_s", "sim_wall_s", "backend",
+                                      "cell", "sim_params")):
+    """Fields of two sweep records that differ (the clocks, the backend tag,
+    the grid index and the cache's key field aside), and a max stretch
+    that is not finite and at least 1."""
+    keys = (set(rec) | set(ref)) - set(skip)
+    bad = sorted(k for k in keys if rec.get(k) != ref.get(k))
+    if not rec.get("quarantined") and (
+            not np.isfinite(rec["max_stretch"]) or rec["max_stretch"] < 1.0):
+        bad.append("max_stretch not finite and >= 1")
+    return bad
+
+
+def scenario_cells():
+    """Phase 4d (a)'s 14 cells, as the groups ``api.sweep`` takes (each a
+    cross product) and as one flat list."""
+    from repro_torch.sched.sweep import Cell
+    from repro_torch.workloads.registry import WorkloadSpec
+
+    lublin = WorkloadSpec("lublin", n_jobs=N_JOBS, n_nodes=N_NODES, seed=0,
+                          load=LOAD)
+    tpu = WorkloadSpec("tpu", n_jobs=N_JOBS, n_nodes=N_NODES, seed=0)
+    groups = [(lublin, SCEN_POLICIES, SCEN_CHAINS),
+              (lublin, ("EASY",), ("rack_failure",)),
+              (lublin, ("Greedy */OPT=AVG",), ("rolling_failures",)),
+              (tpu, TPU_POLICIES, ("baseline",))]
+    cells = [Cell(w, p, sc) for w, pols, chains in groups
+             for p in pols for sc in chains]
+    return groups, cells
+
+
+def scenario_grid(torch, np, tmp):
+    """(a) ``run_grid`` on the card against the supervised host pool, then
+    ``api.sweep`` over the same grid with a record cache, twice."""
+    from repro_torch import api
+    from repro_torch.sched import sweep as sweep_mod
+    from repro_torch.sched.sweep import RecordCache, run_grid
+    from repro_torch.workloads.registry import make_trace_ir
+
+    groups, cells = scenario_cells()
+    for c in cells:
+        make_trace_ir(c.workload)               # traces are set-up, not run
+    res, line = _traced(torch, lambda: run_grid(
+        cells, backend="torch", compute_bound=True, device="cuda"))
+    t0 = time.perf_counter()
+    host = run_grid(cells, backend="numpy", n_workers=SCEN_WORKERS,
+                    timeout_s=600, retries=1, compute_bound=True)
+    host_wall = time.perf_counter() - t0
+    mismatches = []
+    for c, rec, ref in zip(cells, res.records, host.records):
+        bad = _outcome_diff(np, rec, ref)
+        if "bound" not in rec or "degradation" not in rec:
+            bad.append("no bound")
+        if bad:
+            mismatches.append({"cell": f"{c.workload.kind} {c.policy} "
+                                       f"{c.scenario}", "fields": bad})
+
+    # api.sweep over the same grid, twice, counting the cells it hands to
+    # run_grid (the misses it simulates)
+    path = str(Path(tmp) / "cache.json")
+    simulated = []
+    grid_fn = sweep_mod.run_grid
+
+    def counting(cells, **kw):
+        simulated[-1] += len(cells)
+        return grid_fn(cells, **kw)
+
+    def sweep_all():
+        simulated.append(0)
+        return [rec for w, pols, chains in groups
+                for rec in api.sweep([w], pols, chains, cache_path=path,
+                                     device="cuda").records]
+
+    sweep_mod.run_grid = counting
+    try:
+        first, first_line = _traced(torch, sweep_all)
+        second, second_line = _traced(torch, sweep_all)
+    finally:
+        sweep_mod.run_grid = grid_fn
+    sweep_bad = [i for i, (a, ref) in enumerate(zip(first, host.records))
+                 if _outcome_diff(np, a, ref)]
+    cached_equal = first == second          # wall_s too: nothing re-ran
+    n_cached = len(RecordCache(path))
+    by_cell = {f"{c.workload.kind} {c.policy} {c.scenario}":
+               {"max_stretch": r["max_stretch"], "degradation":
+                r["degradation"], "events": r["events"],
+                "scenario_applied": r["scenario_applied"],
+                "lane_wall_s": r["wall_s"], "host_wall_s": h["wall_s"]}
+               for c, r, h in zip(cells, res.records, host.records)}
+    return {"cells": len(cells), **line,
+            "cells_per_s": len(cells) / line["wall_s"],
+            **_shapes(res.alloc_stats),
+            "quarantined": res.n_quarantined + host.n_quarantined,
+            "host_pool_wall_s": host_wall, "host_pool_workers": SCEN_WORKERS,
+            "host_pool_cells_per_s": len(cells) / host_wall,
+            "host_cell_s_sum": sum(r["wall_s"] for r in host.records),
+            "mismatches": mismatches, "by_cell": by_cell,
+            "sweep": {"first_wall_s": first_line["wall_s"],
+                      "first_simulated": simulated[0],
+                      "first_launches": first_line["launches"],
+                      "second_wall_s": second_line["wall_s"],
+                      "second_simulated": simulated[1],
+                      "second_launches": second_line["launches"],
+                      "cached_records": n_cached,
+                      "second_equals_first": cached_equal,
+                      "mismatches_against_host": sweep_bad}}
+
+
+def _chaos_session(trace, narrator_spec, **where):
+    from repro_torch.sched.narrator import parse_narrator
+    from repro_torch.sched.session import open_session
+
+    ses = open_session(N_NODES, SESSION_POLICY, **where)
+    ses.attach_narrator(parse_narrator(narrator_spec, seed=NARRATOR_SEED))
+    ses.submit(trace)
+    return ses
+
+
+def chaos_session(torch, np, tmp):
+    """(b) a session under the chaos narrator on the card, stepped to its
+    500th release, saved, loaded and restored on the card: against the
+    uninterrupted card run and the host numpy run."""
+    from repro_torch.sched.session import SessionState, SimSession
+    from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
+
+    trace = make_trace_ir(WorkloadSpec("lublin", n_jobs=N_JOBS,
+                                       n_nodes=N_NODES, seed=0, load=LOAD))
+    t_at = float(np.sort(trace.release)[BRANCH_AT - 1])
+
+    def whole():
+        ses = _chaos_session(trace, CHAOS, device="cuda")
+        return ses, ses.run()
+
+    (ses, ref_card), line = _traced(torch, whole)
+
+    def split():
+        a = _chaos_session(trace, CHAOS, device="cuda")
+        a.step_until(t_at)
+        path = a.snapshot().save(str(Path(tmp) / "chaos.json"))
+        back = SessionState.load(path)
+        return back, SimSession.restore(back, device="cuda").run()
+
+    (back, got), split_line = _traced(torch, split)
+    t0 = time.perf_counter()
+    host = _chaos_session(trace, CHAOS, alloc_backend="numpy").run()
+    host_wall = time.perf_counter() - t0
+    a, b, h = (_result_fields(r) for r in (got, ref_card, host))
+    bad = sorted({k for k in a if a[k] != b[k] or a[k] != h[k]})
+    if not np.isfinite(got.max_stretch) or got.max_stretch < 1.0:
+        bad.append("max_stretch not finite and >= 1")
+    kinds = Counter(ev.kind for ev in ses._cev)
+    obs = ses.observe()
+    return {"narrator": CHAOS, "narrator_seed": NARRATOR_SEED,
+            "restored_at_release": BRANCH_AT, "restored_at_t": t_at,
+            "snapshot_has_narrator": "narrator" in back.payload,
+            "injections": {**dict(kinds), "noisy_jobs": obs["n_noisy"]},
+            "events": ref_card.events,
+            "events_per_s": ref_card.events / line["wall_s"],
+            "final_time": ref_card.final_time,
+            "max_stretch": ref_card.max_stretch,
+            "mean_stretch": ref_card.mean_stretch,
+            "n_cancelled": obs["n_cancelled"], **line,
+            **_shapes(ses.engine.alloc_backend.stats),
+            "split_wall_s": split_line["wall_s"],
+            "split_launches": split_line["launches"],
+            "host_wall_s": host_wall, "mismatches": bad}
+
+
+def _timed_fires(tuner):
+    """Wrap ``tuner.fire`` so each race's wall is kept (the session's loop
+    calls it through the instance)."""
+    walls = []
+    fire = tuner.fire
+
+    def timed(session, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fire(session, **kw)
+        finally:
+            walls.append(time.perf_counter() - t0)
+
+    tuner.fire = timed
+    return walls
+
+
+def _tuned_demo(**where):
+    from repro_torch import api
+
+    ses = api.open_session(TUNE_NODES, TUNE_INCUMBENT, **where)
+    tuner = api.autotune(ses, TUNE_SPEC, seed=TUNER_SEED)
+    walls = _timed_fires(tuner)
+    ses.submit(api.parse_workload("lublin", n_jobs=TUNE_JOBS,
+                                  n_nodes=TUNE_NODES, seed=TUNE_SEED,
+                                  load=TUNE_LOAD))
+    ses.inject({"kind": "fail", "t": TUNE_FAIL_T, "nodes": list(TUNE_RACK)})
+    ses.inject({"kind": "join", "t": TUNE_JOIN_T, "nodes": list(TUNE_RACK)})
+    ses.run_to_exhaustion()
+    return ses, tuner, walls
+
+
+def _tuned_paper(trace, **where):
+    from repro_torch import api
+
+    ses = _chaos_session(trace, CHAOS_TUNED, **where)
+    tuner = api.autotune(ses, TUNE_PAPER_SPEC, seed=TUNER_SEED)
+    walls = _timed_fires(tuner)
+    ses.step_until(TUNE_PAPER_UNTIL_S)
+    return ses, tuner, walls
+
+
+def _tune_line(ses, tuner, walls):
+    r = ses.result()
+    obs = ses.observe()
+    return {"races": len(tuner.decisions),
+            "rungs": [len(d.get("rungs", ())) for d in tuner.decisions],
+            "race_wall_s": walls,
+            "swaps": [{"t": d["t"], "to": d["winner"]["policy"]}
+                      for d in tuner.decisions if d["swapped"]],
+            "final_policy": ses.policy_name, "exhausted": ses.exhausted,
+            "completed": obs["n_completed"], "paused": obs["n_paused"],
+            "max_stretch": r.max_stretch, "events": r.events}
+
+
+def tuned_sessions(torch, np):
+    """(c) the autotuner, its races in lockstep on the card: the reference's
+    demo, then a paper-size session under chaos, each against the host
+    numpy tuner."""
+    from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
+
+    (ses, tuner, walls), line = _traced(torch, lambda: _tuned_demo(
+        device="cuda"))
+    h_ses, h_tuner, h_walls = _tuned_demo(alloc_backend="numpy")
+    demo = {**_tune_line(ses, tuner, walls), **line,
+            "host_race_wall_s": h_walls,
+            "decisions_equal": tuner.decisions == h_tuner.decisions,
+            "result_equal": (_result_fields(ses.result())
+                             == _result_fields(h_ses.result()))}
+    swaps = demo["swaps"]
+    demo["reference_demo_ok"] = (
+        len(swaps) == 1 and swaps[0]["t"] == 6000.0
+        and swaps[0]["to"] == TUNE_PORTFOLIO[1]
+        and round(demo["max_stretch"], 6) == TUNE_DEMO_STRETCH)
+
+    trace = make_trace_ir(WorkloadSpec("lublin", n_jobs=N_JOBS,
+                                       n_nodes=N_NODES, seed=0, load=LOAD))
+    (ses, tuner, walls), line = _traced(torch, lambda: _tuned_paper(
+        trace, device="cuda"))
+    t0 = time.perf_counter()
+    h_ses, h_tuner, h_walls = _tuned_paper(trace, alloc_backend="numpy")
+    st = ses.engine.state
+    paper = {**_tune_line(ses, tuner, walls), **line,
+             "narrator": CHAOS_TUNED, "spec": TUNE_PAPER_SPEC,
+             "until_s": TUNE_PAPER_UNTIL_S,
+             "paused_widths": [st.specs[i].n_tasks
+                               for i in st.in_system_indices()],
+             "host_wall_s": time.perf_counter() - t0,
+             "host_race_wall_s": h_walls,
+             "decisions_equal": tuner.decisions == h_tuner.decisions,
+             "result_equal": (_result_fields(ses.result())
+                              == _result_fields(h_ses.result()))}
+    return {"demo": demo, "paper": paper}
+
+
+def phase_slice_scenarios(torch, np):
+    """Scenario grids on the card against the supervised host pool, a
+    record cache, a chaos session restored mid-run, and the autotuner."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    # each part's line as it ends: a run cut short still shows the parts
+    with tempfile.TemporaryDirectory() as tmp:
+        grid_part = scenario_grid(torch, np, tmp)
+        emit({"phase": "slice scenarios", "part": "grid", **grid_part})
+        chaos = chaos_session(torch, np, tmp)
+        emit({"phase": "slice scenarios", "part": "chaos", **chaos})
+    tune = tuned_sessions(torch, np)
+    emit({"phase": "slice scenarios", "part": "tune", **tune})
+    sw = grid_part["sweep"]
+    demo, paper = tune["demo"], tune["paper"]
+    ok = (not grid_part["mismatches"] and grid_part["quarantined"] == 0
+          and sw["first_simulated"] == grid_part["cells"]
+          and sw["second_simulated"] == 0
+          and sw["second_equals_first"]
+          and not sw["mismatches_against_host"]
+          and sw["cached_records"] == grid_part["cells"]
+          and all(v == 0 for v in sw["second_launches"].values())
+          and grid_part["launches"]["maxmin_solve"] > 0
+          and grid_part["launches"]["alloc_matvec"] > 0
+          and not chaos["mismatches"] and chaos["snapshot_has_narrator"]
+          and chaos["launches"]["maxmin_solve"] > 0
+          and demo["reference_demo_ok"] and demo["decisions_equal"]
+          and demo["result_equal"] and demo["launches"]["maxmin_solve"] > 0
+          and paper["decisions_equal"] and paper["result_equal"]
+          and paper["launches"]["maxmin_solve"] > 0)
+    emit({"phase": "slice scenarios", "ok": ok,
+          "wall_s": time.perf_counter() - t0,
+          "parts_wall_s": {"grid": grid_part["wall_s"],
+                           "host_pool": grid_part["host_pool_wall_s"],
+                           "sweep": sw["first_wall_s"] + sw["second_wall_s"],
+                           "chaos": chaos["wall_s"],
+                           "tune_demo": demo["wall_s"],
+                           "tune_paper": paper["wall_s"]}})
+    if not ok:
+        raise PhaseFailed("a scenario grid, the chaos session or a tuned "
+                          "session disagrees with its host run, or did not "
+                          "reach a kernel")
+    return {"grid": grid_part["launches"], "sweep": sw["first_launches"],
+            "chaos": chaos["launches"], "tune_demo": demo["launches"],
+            "tune_paper": paper["launches"]}
+
+
+# --------------------------------------------------------------------------- #
 # the serving path (RecurrentGemma-2B, RWKV6-7B)                               #
 # --------------------------------------------------------------------------- #
 RG, RWKV = "recurrentgemma-2b", "rwkv6-7b"
@@ -1788,7 +2165,7 @@ def wkv6_entries(torch, np, launches, prompt_lens, routes, functions):
 
 
 def phase_kernel_line(torch, np, launches, stats, functions,
-                      session_launches):
+                      session_launches, scenario_launches):
     from repro_torch.kernels.alloc_matvec import (alloc_matvec_cuda,
                                                   alloc_matvec_plain)
     from repro_torch.kernels.maxmin_solve import (maxmin_solve_cuda,
@@ -1817,6 +2194,8 @@ def phase_kernel_line(torch, np, launches, stats, functions,
         "launches": launches["alloc_matvec"], "shape": [B, N, W],
         "launches_session": {k: v["alloc_matvec"]
                              for k, v in session_launches.items()},
+        "launches_scenarios": {k: v["alloc_matvec"]
+                               for k, v in scenario_launches.items()},
         "ptxas": ptxas_of(functions, "alloc_matvec_kernel"),
         "max_abs_err": float((k - p).abs().max()) if k.numel() else 0.0,
         "library_max_abs_diff": float((k - lib).abs().max()),
@@ -1860,6 +2239,8 @@ def phase_kernel_line(torch, np, launches, stats, functions,
         "launches": launches["maxmin_solve"], "shape": [B, N, W],
         "launches_session": {k: v["maxmin_solve"]
                              for k, v in session_launches.items()},
+        "launches_scenarios": {k: v["maxmin_solve"]
+                               for k, v in scenario_launches.items()},
         "ptxas": ptxas_of(functions, "maxmin_solve_kernelILb"
                           + ("1" if route == "shared" else "0")),
         "rounds_mean": float(rounds.mean()), "rounds_max": int(rounds.max()),
@@ -1907,6 +2288,8 @@ def main() -> int:
         phase_slice_mcb8(torch, np)
         phase = "slice session"
         session_launches = phase_slice_session(torch, np)
+        phase = "slice scenarios"
+        scenario_launches = phase_slice_scenarios(torch, np)
         phase = "serve kernels"
         phase_serve_kernels(torch)
         for arch in SERVE_ARCHS:
@@ -1919,7 +2302,7 @@ def main() -> int:
         phase = "kernels line"
         alloc_entries, alloc_ok = phase_kernel_line(
             torch, np, launches, stats, libraries["alloc"]["ptxas"],
-            session_launches)
+            session_launches, scenario_launches)
         serve_entries, serve_ok = serve_kernel_entries(
             torch, np, *served[RG], libraries["attention"]["ptxas"], hgmma,
             libraries["rglru"]["ptxas"])

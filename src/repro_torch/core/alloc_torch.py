@@ -309,44 +309,76 @@ class LockstepDispatcher:
     """Coordinate N engine threads so their allocation requests land on the
     device as one batch per scheduling round.
 
-    Each engine runs in its own thread with a :meth:`lane` backend plugged
-    in; a lane's ``allocate`` parks the thread until the driver thread
-    (:meth:`serve`) has collected a request from *every* lane that is still
-    running — engines that never allocate (batch baselines) simply run to
-    completion and drop out of the barrier via :meth:`finish_lane`.  The
+    Each engine runs in its own thread through :meth:`run`, with a
+    :meth:`lane` backend plugged in; a lane's ``allocate`` parks the thread
+    until the driver thread (:meth:`serve`) has collected a request from
+    *every* lane that is still running — engines that never allocate (batch
+    baselines) simply run to completion and drop out of the barrier.  The
     driver answers each round with one ``allocate_many`` and wakes the
     lanes.  Per-lane results are bit-independent of batch composition, so
     the lockstep schedule cannot change any cell's outcome.  An exception
     on the driver (a CUDA error included) poisons the barrier: every parked
     and future lane raises it instead of waiting.
+
+    The lanes' engine code shares one interpreter lock, so it runs one lane
+    at a time in any case; :meth:`run` makes that explicit with a run token
+    that a lane holds while it computes and hands on while it waits for its
+    answer.  Without it every lane is runnable at once, and each brief lock
+    release inside numpy or a wake-up lets another lane take the
+    interpreter for a whole switch interval.  Wake-ups are targeted too:
+    the driver is woken once the round is full, and each lane only when its
+    own answer is ready (one event per lane).
     """
 
     def __init__(self, n_lanes: int, allocator: TorchBatchedAllocator):
         self.n_lanes = int(n_lanes)
         self.allocator = allocator
-        self._cond = threading.Condition()
+        self._cond = threading.Condition()      # the driver waits on it
         self._pending: Dict[int, Tuple[CSRIncidence, np.ndarray, str]] = {}
         self._results: Dict[int, object] = {}
+        self._answered = [threading.Event() for _ in range(self.n_lanes)]
         self._finished: set = set()
         self._broken: Optional[BaseException] = None
+        self._token = threading.Lock()  # held by the lane that computes
 
     def lane(self, i: int) -> "_Lane":
         return _Lane(self, i)
+
+    def run(self, i: int, fn):
+        """Run ``fn(lane)`` as lane ``i`` in the calling thread: holding the
+        run token while it computes, leaving the barrier when it returns
+        or raises."""
+        self._token.acquire()
+        try:
+            return fn(self.lane(i))
+        finally:
+            self._token.release()
+            self.finish_lane(i)
+
+    def _round_full(self) -> bool:
+        # caller holds self._cond
+        return len(self._pending) + len(self._finished) >= self.n_lanes
 
     def finish_lane(self, i: int) -> None:
         """A lane's engine is done (or died) — it leaves the barrier."""
         with self._cond:
             self._finished.add(i)
-            self._cond.notify_all()
+            if self._round_full():
+                self._cond.notify()
 
     def _request(self, i, inc, cols, opt) -> np.ndarray:
+        answered = self._answered[i]
         with self._cond:
             if self._broken is not None:
                 raise self._broken
             self._pending[i] = (inc, cols, opt)
-            self._cond.notify_all()
-            self._cond.wait_for(
-                lambda: i in self._results or self._broken is not None)
+            if self._round_full():
+                self._cond.notify()
+        self._token.release()
+        answered.wait()
+        answered.clear()
+        self._token.acquire()
+        with self._cond:
             res = self._results.pop(i, self._broken)
         if isinstance(res, BaseException):
             raise res
@@ -357,9 +389,7 @@ class LockstepDispatcher:
         that owns the device (the sweep driver)."""
         while True:
             with self._cond:
-                self._cond.wait_for(
-                    lambda: len(self._pending) + len(self._finished)
-                    >= self.n_lanes)
+                self._cond.wait_for(self._round_full)
                 if not self._pending:
                     return              # every lane finished
                 batch = sorted(self._pending.items())
@@ -370,12 +400,14 @@ class LockstepDispatcher:
             except BaseException as exc:
                 with self._cond:        # poison: wake every parked/future lane
                     self._broken = exc
-                    self._cond.notify_all()
+                for ev in self._answered:
+                    ev.set()
                 raise
             with self._cond:
                 for i, y in zip(lanes, answers):
                     self._results[i] = y
-                self._cond.notify_all()
+            for i in lanes:
+                self._answered[i].set()
 
 
 class _Lane:

@@ -1,2 +1,22 @@
 """repro_torch.sched — the scheduling engine, its policy components,
-metrics, cluster events, the session event loop and batched sweeps."""
+metrics, cluster events and named scenarios, the chaos narrator, the
+session event loop, and scenario sweeps (lockstep on a device, or a pool
+of host processes)."""
+from .cluster import ClusterEvent, failure_trace
+from .engine import Engine, Policy, SimParams, SimResult
+from .narrator import Narrator, parse_narrator
+from .scenarios import (apply_scenario, apply_scenario_trace,
+                        list_scenarios, parse_scenario_chain,
+                        register_scenario, run_reactive, scenario_docs)
+from .sweep import (Cell, RecordCache, SweepResult, grid, run_batched,
+                    run_branches, run_grid)
+
+__all__ = [
+    "Engine", "Policy", "SimParams", "SimResult",
+    "ClusterEvent", "failure_trace",
+    "apply_scenario", "apply_scenario_trace", "parse_scenario_chain",
+    "list_scenarios", "scenario_docs", "register_scenario", "run_reactive",
+    "Narrator", "parse_narrator",
+    "Cell", "RecordCache", "SweepResult", "grid", "run_grid", "run_batched",
+    "run_branches",
+]

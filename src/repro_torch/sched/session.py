@@ -42,9 +42,11 @@ fluid-progress integrals see the identical sequence of ``advance()``
 windows no matter where step boundaries fall, and ``Engine.run()`` (open →
 step to exhaustion → result) gives the same result as any partition.
 
-Not ported yet (ROADMAP.md): the chaos narrator and the autotuner, whose
-hooks the loop leaves out; attaching either, or restoring a snapshot that
-carries their state, raises ``NotImplementedError``.
+A chaos :class:`~repro_torch.sched.narrator.Narrator`
+(:meth:`SimSession.attach_narrator`) and an online autotuner
+(:meth:`SimSession.attach_autotuner`, :mod:`repro_torch.tune`) fire lazily
+from the loop at the same partition-invariant boundary, and their state
+rides snapshots under the optional ``narrator`` / ``autotune`` keys.
 """
 from __future__ import annotations
 
@@ -67,6 +69,7 @@ from ..workloads.trace import Trace, as_trace
 from .cluster import ClusterEvent
 from .engine import (_EPS, Engine, Policy, SimParams, SimResult,
                      resolve_policy_arg)
+from .narrator import Narrator
 
 __all__ = ["SimSession", "SessionState", "open_session", "SCHEMA",
            "SNAPSHOT_VERSION", "HOST_NUMPY"]
@@ -94,10 +97,6 @@ _JOB_COLS = ("jid", "release", "proc_time", "n_tasks", "cpu_need", "mem_req")
 
 #: ``alloc_backend`` value selecting the host numpy allocation path
 HOST_NUMPY = "numpy"
-
-_NOT_PORTED = ("the chaos narrator (sched/narrator.py) and the autotuner "
-               "(tune/) are not ported yet; see ROADMAP.md")
-
 
 def _engine_backend(device, alloc_backend):
     """The engine's §4.6 backend: ``alloc_backend`` when given (``"numpy"``
@@ -370,9 +369,12 @@ class SimSession:
         self._horizon = st.now
         self._wall = 0.0
         #: True while a stream() call still holds future chunks: the tick
-        #: train stays armed through inter-chunk gaps exactly as it would
-        #: with the whole trace submitted upfront
+        #: train and narrator stay armed through inter-chunk gaps exactly as
+        #: they would with the whole trace submitted upfront
         self._stream_pending = False
+        self._narrator: Optional[Narrator] = None
+        #: optional repro_torch.tune.AutoTuner driven from the stepping loop
+        self._tuner = None
         self._closed = False
         self._close_hooks: List[Any] = []
         #: ephemeral caller scratchpad; deliberately NOT part of snapshots
@@ -555,6 +557,8 @@ class SimSession:
             # period after the first release the session ever saw
             self._next_tick = specs[0].release + self.engine.params.period
             self._tick_armed = True
+        if self._narrator is not None:
+            self._narrator.on_submitted(self, idx)
         self._exhausted = False         # new future work re-arms the loop
         return idx
 
@@ -657,26 +661,45 @@ class SimSession:
         self.engine.params = dataclasses.replace(self.engine.params,
                                                  period=period)
 
-    def attach_narrator(self, narrator) -> None:
-        raise NotImplementedError(_NOT_PORTED)
+    def attach_narrator(self, narrator: Narrator) -> None:
+        """Attach a chaos :class:`~repro_torch.sched.narrator.Narrator`: its
+        streams fire lazily as the loop advances and ride along in
+        snapshots (bit-exact RNG round-trip).  Attach before submitting so
+        truth-noise streams see every job."""
+        self._require_open("attach a narrator to")
+        if (narrator.needs_cluster_events()
+                and not self.engine.policy.handles_cluster_events):
+            raise ValueError(
+                f"policy {self.policy_name!r} does not handle cluster "
+                f"events; only truth-noise narrator streams work under "
+                f"batch baselines")
+        self._narrator = narrator
+        self._exhausted = False         # a new event source re-arms the loop
 
-    def attach_autotuner(self, tuner) -> None:
-        raise NotImplementedError(_NOT_PORTED)
+    @property
+    def narrator(self) -> Optional[Narrator]:
+        return self._narrator
 
     def switch_policy(self, policy) -> None:
         """Hot-swap the scheduling policy in place, mid-run.
 
         The live engine state is untouched; the new policy rebuilds its
         private state from it exactly like a what-if fork
-        (``restore(snap, policy=...)``) would.  Refused for policies that
-        do not handle cluster events while the session still needs them
-        (pending injected events, or dead nodes).
+        (``restore(snap, policy=...)``) would — the promotion primitive of
+        :mod:`repro_torch.tune`.  Refused for policies that do not handle
+        cluster events while the session still needs them (an attached
+        chaos narrator, pending injected events, or dead nodes).
         """
         self._require_open("switch the policy of")
         e = self.engine
         st = e.state
         spec, pol, ref = resolve_policy_arg(policy)
         if not pol.handles_cluster_events:
+            if (self._narrator is not None
+                    and self._narrator.needs_cluster_events()):
+                raise ValueError(
+                    f"cannot switch to {policy!r}: it does not handle "
+                    f"cluster events but the attached narrator injects them")
             if self._ci < len(self._cev):
                 raise ValueError(
                     f"cannot switch to {policy!r}: it does not handle "
@@ -701,6 +724,24 @@ class SimSession:
             self._next_tick = st.now + e.params.period
             self._tick_armed = True
         self._exhausted = False         # the new policy may act again
+
+    def attach_autotuner(self, tuner) -> None:
+        """Attach a :class:`repro_torch.tune.AutoTuner`: it fires lazily
+        from the stepping loop like the narrator — fork, race, maybe
+        promote — and its full state (RNG, schedule, decision log) rides
+        along in snapshots bit-exactly.  Its races run where this session
+        allocates (see :class:`~repro_torch.tune.TuneConfig`)."""
+        self._require_open("attach an autotuner to")
+        if self.engine.policy_ref is None:
+            raise ValueError(
+                "session policy has no rebuildable reference (ad-hoc "
+                "Policy instance); the tuner could not race or restore it")
+        self._tuner = tuner
+        self._exhausted = False         # tuner peeks re-arm the loop
+
+    @property
+    def autotuner(self):
+        return self._tuner
 
     # -- projected state (pending injections applied) -----------------------
     def _projected_alive(self, t: Optional[float] = None) -> np.ndarray:
@@ -768,6 +809,52 @@ class SimSession:
                 t_tick = (self._next_tick
                           if (periodic and armed) else math.inf)
                 t_next = min(t_arr, t_done, t_tick, t_cev)
+                # narrator streams fire lazily, never past the next engine
+                # event or the step bound (a fire injects into the pending
+                # suffix, so the injected timestamps process right below);
+                # gated on (live or heap) like the tick so a drained
+                # session still exhausts
+                nar = self._narrator
+                if nar is not None and armed:
+                    while True:
+                        t_nar = nar.peek(self)
+                        if not (t_nar <= t_next
+                                and (t_nar < until if exclusive
+                                     else t_nar <= until)):
+                            break
+                        nar.fire(self)
+                        t_cev = (cev[self._ci].time
+                                 if self._ci < len(cev) else math.inf)
+                        t_next = min(t_next, t_cev)
+                    if math.isinf(t_next) and math.isfinite(nar.peek(self)):
+                        break           # chaos pending beyond the step
+                                        # bound — a peek, not an event
+                # the autotuner fires at the same lazy boundary: when its
+                # scheduled time is due before the next engine event AND
+                # inside the step bound — so the fire point (and therefore
+                # the race snapshot and the decision log) is identical no
+                # matter how the run is partitioned into step() calls.  A
+                # fire is not an engine event; a promotion invalidates the
+                # cached loop locals, so restart the iteration.
+                tun = self._tuner
+                if tun is not None and armed and not math.isinf(t_next):
+                    swapped = False
+                    while True:
+                        t_tun = tun.peek(self)
+                        if not (t_tun <= t_next
+                                and (t_tun < until if exclusive
+                                     else t_tun <= until)):
+                            break
+                        if tun.fire(self):
+                            swapped = True
+                            break
+                    if swapped:
+                        pol = e.policy
+                        p = e.params
+                        periodic = self._periodic
+                        cev = self._cev
+                        compact_every = p.compact_interval
+                        continue
                 if exclusive and (math.isinf(t_next) or t_next >= until):
                     break               # stream-window boundary peek — the
                                         # next chunk arrives before t_next
@@ -1010,6 +1097,12 @@ class SimSession:
             "first_release": st.first_release,
             "retired": st.retired.payload(),
         }
+        if self._narrator is not None:
+            # optional key: narrator-free snapshots keep the legacy shape
+            payload["narrator"] = self._narrator.state()
+        if self._tuner is not None:
+            # optional key: tuner RNG + schedule + decision log ride along
+            payload["autotune"] = self._tuner.state()
         return SessionState(payload)
 
     @classmethod
@@ -1048,10 +1141,6 @@ class SimSession:
                 f"session snapshot is missing required keys "
                 f"{sorted(missing)} (stale, truncated, or foreign "
                 f"snapshot?); cannot restore")
-        for key in ("narrator", "autotune"):
-            if key in pl:
-                raise NotImplementedError(
-                    f"the snapshot carries {key!r} state: {_NOT_PORTED}")
         params = SimParams(**pl["params"])
         switched = policy is not None
         if policy is None:
@@ -1134,6 +1223,22 @@ class SimSession:
         ses._closed = False
         ses._close_hooks = []
         ses.scratch = {}
+        nar_pl = pl.get("narrator")
+        ses._narrator = Narrator.from_state(nar_pl) if nar_pl else None
+        if (ses._narrator is not None and switched
+                and ses._narrator.needs_cluster_events()
+                and not e.policy.handles_cluster_events):
+            # fork onto a batch baseline: the cluster script is dropped, so
+            # the chaos streams that feed it go too (noise-only survives)
+            ses._narrator = None
+        tun_pl = pl.get("autotune")
+        if tun_pl and not switched:
+            from ..tune.controller import AutoTuner
+            ses._tuner = AutoTuner.from_state(tun_pl)
+        else:
+            # policy-switching forks are what-if branches: they race under
+            # the tuner, they never recursively run one
+            ses._tuner = None
         if switched:
             if not e.policy.handles_cluster_events:
                 # batch baselines do not model failures: the fork drops the

@@ -27,12 +27,14 @@ Built-in kinds:
   native streamer for :func:`stream_trace`: the log is parsed in
   submit-time windows (``params["window"]`` seconds, default one day) and
   never held whole.
-
-The TPU job mix ``tpu`` is not ported yet: naming it raises
-``NotImplementedError`` (see ROADMAP.md).
+* ``"tpu"``    — a Poisson mix of accelerator job types
+  (:mod:`~repro_torch.workloads.jobgen`); ``load`` is the target offered
+  load (default 0.6), ``params["records"]`` a JSON file of dry-run
+  roofline records to derive the types from.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
@@ -52,12 +54,6 @@ __all__ = [
 
 _SCALARS = (str, int, float, bool)
 ParamsLike = Union[Mapping, Tuple[Tuple[str, object], ...]]
-
-#: workload kinds still to port (ROADMAP.md), with what each needs
-_UNPORTED_KINDS = {
-    "tpu": "the roofline job-type bridge (workloads.jobgen)",
-}
-
 
 @dataclass(frozen=True)
 class WorkloadKind:
@@ -115,10 +111,6 @@ def list_workloads() -> List[str]:
 def workload_kind(name: str) -> WorkloadKind:
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"workload kind {name!r} is not ported yet: it needs "
-            f"{_UNPORTED_KINDS[name]}; see ROADMAP.md")
     raise ValueError(f"unknown workload kind {name!r}; "
                      f"expected one of {tuple(list_workloads())}")
 
@@ -294,3 +286,24 @@ def _swf_stream_chunks(spec: WorkloadSpec, window_s: float):
 def _swf_stream(spec: WorkloadSpec) -> Trace:
     # materialized fallback (simulate/sweep paths): same rows as 'swf'
     return _swf(spec)
+
+
+@register_workload(
+    "tpu", supports_load=True, params=("records", "chips_per_task"),
+    doc="accelerator-pod job mix from roofline job types (workloads.jobgen); "
+        "load= is the target offered load (default 0.6), "
+        "params[records]= derives types from a dry-run artifact")
+def _tpu(spec: WorkloadSpec) -> Trace:
+    from .jobgen import DEFAULT_TPU_JOB_TYPES, tpu_job_types, tpu_trace
+    records_path = spec.param("records")
+    if records_path:
+        with open(str(records_path)) as f:
+            types = tpu_job_types(json.load(f),
+                                  chips_per_task=int(spec.param(
+                                      "chips_per_task", 16)))
+    else:
+        types = DEFAULT_TPU_JOB_TYPES
+    load = spec.load if spec.load is not None else 0.6
+    return Trace.from_specs(
+        tpu_trace(types, n_jobs=spec.n_jobs, n_nodes=spec.n_nodes,
+                  seed=spec.seed, target_load=load))

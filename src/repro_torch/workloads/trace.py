@@ -146,6 +146,14 @@ class Trace:
             object.__setattr__(self, "_fingerprint", fp)
         return fp
 
+    def span(self) -> Tuple[float, float]:
+        """(first release, max(release span, 1.0)) — the scenario timebase."""
+        if not len(self):
+            return 0.0, 1.0
+        lo = float(self.release.min())
+        hi = float(self.release.max())
+        return lo, max(hi - lo, 1.0)
+
     # ------------------------------------------------------------------ #
     # construction boundaries                                             #
     # ------------------------------------------------------------------ #

@@ -144,11 +144,24 @@ def test_a_crashing_branch_is_quarantined_or_raises():
 
 
 def test_branch_seed_is_recorded_and_supervision_is_not_ported():
+    """``branch_seed`` is recorded (with no narrator it reseeds nothing);
+    supervision is ported now: ``timeout_s``/``retries`` quarantine a
+    failed lane on the device path and supervise worker processes on the
+    host path, with the reference's records."""
     _, snap = _snapshot(seed=8)
     res = run_branches(snap, ["GreedyP */OPT=MIN"], branch_seed=11, **CPU)
     assert res.records[0]["branch_seed"] == 11
     assert not res.records[0]["exact_continuation"]
-    for kw in ({"timeout_s": 5.0}, {"retries": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_branches(snap, ["EASY"], **kw, **CPU)
+    plain = run_branches(snap, ["GreedyP */OPT=MIN"], **CPU).records[0]
+    assert res.records[0]["max_stretch"] == plain["max_stretch"]
+    pols = ["EASY", "NoSuchPolicy"]
+    ref = ref_run_branches(snap.to_json_dict(), pols, quarantine=True)
+    for kw in ({"timeout_s": 30.0}, {"retries": 1}):
+        dev = run_branches(snap, pols, **kw, **CPU)
+        host = run_branches(snap, pols, **kw, backend="numpy")
+        for got in (dev, host):
+            assert [bool(r.get("quarantined")) for r in got.records] == \
+                [False, True]
+            assert _outcomes(got.records[:1]) == _outcomes(ref.records[:1])
+        assert host.records[1]["attempts"] == 1 + kw.get("retries", 0)
     assert run_branches(snap, [], **CPU).records == []

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor the JAX package (nor
 do ``chip_smoke.py``, ``ab_alloc.py`` and ``ab_prefill.py``), and its
-device entry points run on the card unless told otherwise."""
+device entry points (the sweeps, ``api.sweep`` and the tuner's races
+included) run on the card unless told otherwise."""
 import json
 import os
 import pathlib
@@ -21,6 +22,7 @@ from repro_torch.models import backbone, blocks
 from repro_torch.models.layers import mlp_init, uinit
 from repro_torch.sched.sweep import grid, run_batched
 from repro_torch.train.serve import BatchedServer, ServeConfig
+from repro_torch.tune import Variant
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -64,7 +66,9 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
                 "kernels.rwkv6_scan", "train.serve", "launch.serve",
                 "core.mcb8", "core.stretch_opt", "workloads.hpc2n",
                 "workloads.registry", "sched.components", "sched.session",
-                "sched.sweep", "core.ioutil", "api"):
+                "sched.sweep", "core.ioutil", "api", "workloads.jobgen",
+                "sched.scenarios", "sched.narrator", "sched.cluster",
+                "tune", "tune.score", "tune.race", "tune.controller"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
@@ -112,6 +116,31 @@ def test_session_entry_points_default_to_cuda_and_raise_without_it():
     assert api.SimSession.restore(snap, device="cpu").engine.alloc_backend
     rec = api.run_branches(snap, ["EASY"], device="cpu").records[0]
     assert rec["backend"] == "torch" and rec["max_stretch"] >= 1.0
+
+
+def test_grid_and_tuner_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path):
+    _need_no_cuda()
+    w = api.WorkloadSpec("lublin", n_jobs=10, n_nodes=4, seed=0)
+    cells = api.grid([w], ["GreedyP */OPT=MIN"], ["rack_failure"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.run_grid(cells)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.run_grid(cells, retries=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.sweep([w], ["GreedyP */OPT=MIN"],
+                  cache_path=str(tmp_path / "c.json"))
+    ses = api.open_session(4, "GreedyP */OPT=MIN", device="cpu")
+    ses.submit(w)
+    ses.step(3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.race(ses.snapshot(), [], Variant("EASY"), base_horizon=100.0)
+    # the tuner races where its session allocates: here, the CPU
+    tuner = api.autotune(ses, "every=100;policies=EASY")
+    assert str(tuner._race_target(ses)["device"]) == "cpu"
+    # on the CPU and on the host when asked
+    assert api.run_grid(cells, device="cpu").records[0]["backend"] == "torch"
+    assert api.sweep([w], ["EASY"], backend="numpy").n_cells == 1
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])

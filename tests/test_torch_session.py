@@ -40,6 +40,8 @@ from repro_torch.sched.cluster import ClusterEvent
 from repro_torch.sched.engine import Engine, SimParams
 from repro_torch.sched.session import (SNAPSHOT_VERSION, SessionState,
                                        SimSession, open_session)
+from repro_torch.sched.narrator import parse_narrator
+from repro_torch.tune import AutoTuner
 from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
 
 CPU = dict(device="cpu")
@@ -323,19 +325,38 @@ def test_restore_refuses_bad_versions_and_missing_keys():
 
 @pytest.mark.parametrize("key", ["narrator", "autotune"])
 def test_unported_state_keys_raise(key):
+    """Both keys are ported now: a malformed payload under either raises,
+    and a well-formed one restores."""
     ses, _ = _pair("GreedyP */OPT=MIN", n_jobs=20, n_nodes=8)
+    if key == "narrator":
+        ses.attach_narrator(parse_narrator("breakdown(mtbf=500)", seed=1))
+    else:
+        ses.attach_autotuner(AutoTuner("every=500;policies=EASY", seed=1))
     ses.step(5)
-    pl = {**ses.snapshot().payload, key: {"state": 1}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SimSession.restore(SessionState(pl), **CPU)
+    good = ses.snapshot().payload
+    bad = {**good, key: {"state": 1}}
+    with pytest.raises(KeyError):
+        SimSession.restore(SessionState(bad), **CPU)
+    back = SimSession.restore(SessionState(good), **CPU)
+    assert (back.narrator if key == "narrator" else back.autotuner) \
+        is not None
 
 
 def test_attach_narrator_and_autotuner_raise():
-    ses = open_session(8, "GreedyP */OPT=MIN", **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ses.attach_narrator(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ses.attach_autotuner(object())
+    """Attaching raises only where the reference refuses: cluster-event
+    streams under a batch policy, a tuner over an ad-hoc policy, or a
+    closed session."""
+    ses = open_session(8, "EASY", **CPU)
+    with pytest.raises(ValueError, match="does not handle cluster events"):
+        ses.attach_narrator(parse_narrator("breakdown", seed=0))
+    ses.attach_narrator(parse_narrator("noise", seed=0))
+    assert ses.narrator is not None
+    ses.engine.policy_ref = None
+    with pytest.raises(ValueError, match="rebuildable reference"):
+        ses.attach_autotuner(AutoTuner())
+    ses.close()
+    with pytest.raises(ValueError, match="closed"):
+        ses.attach_narrator(parse_narrator("noise", seed=0))
 
 
 def test_seed_policy_state_is_a_clear_error():

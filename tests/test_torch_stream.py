@@ -245,14 +245,15 @@ def test_swf_stream_kind_equals_swf_and_reference(tmp_path, seed, n_jobs):
 
 
 def test_stream_trace_falls_back_to_iter_chunks_and_tpu_is_unported():
-    w = WorkloadSpec("lublin", n_jobs=80, n_nodes=16, seed=2)
-    a = list(stream_trace(w, window_s=3600.0))
-    b = list(make_trace_ir(w).iter_chunks(3600.0))
-    assert len(a) == len(b)
-    for x, y in zip(a, b):
-        _same_trace(x, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WorkloadSpec("tpu")
+    """Kinds without a native streamer (Lublin, and the tpu job mix, which
+    is ported now) stream through ``iter_chunks``."""
+    for w in (WorkloadSpec("lublin", n_jobs=80, n_nodes=16, seed=2),
+              WorkloadSpec("tpu", n_jobs=80, n_nodes=32, seed=2)):
+        a = list(stream_trace(w, window_s=3600.0))
+        b = list(make_trace_ir(w).iter_chunks(3600.0))
+        assert len(a) == len(b) > 1
+        for x, y in zip(a, b):
+            _same_trace(x, y)
 
 
 # --------------------------------------------------------------------------- #

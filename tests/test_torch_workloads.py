@@ -1,11 +1,13 @@
-"""The port's workload registry and its HPC2N / swf kinds
-(``repro_torch.workloads.registry``, ``repro_torch.workloads.hpc2n``)
-against the JAX package's: equal traces (fingerprints and columns) over
-seeds and sizes, the swf fixture parsed and preprocessed the same way, the
-prefix cap and the cluster-width filter applied alike, and the registry's
-knob contract enforced alike.
+"""The port's workload registry and its HPC2N / swf / tpu kinds
+(``repro_torch.workloads.registry``, ``repro_torch.workloads.hpc2n``,
+``repro_torch.workloads.jobgen``) against the JAX package's: equal traces
+(fingerprints and columns) over seeds and sizes, the swf fixture parsed
+and preprocessed the same way, the prefix cap and the cluster-width filter
+applied alike, roofline records turned into the same job types, and the
+registry's knob contract enforced alike.
 """
 import dataclasses
+import json
 import pathlib
 
 import numpy as np
@@ -14,6 +16,7 @@ import pytest
 from repro.workloads.hpc2n import hpc2n_like_trace as ref_hpc2n_like
 from repro.workloads.hpc2n import hpc2n_preprocess as ref_preprocess
 from repro.workloads.hpc2n import parse_swf as ref_parse_swf
+from repro.workloads import jobgen as ref_jobgen
 from repro.workloads.registry import WorkloadSpec as RefWorkload
 from repro.workloads.registry import make_trace_ir as ref_trace
 from repro.workloads.registry import parse_workload as ref_parse_workload
@@ -21,6 +24,7 @@ from repro.workloads.registry import parse_workload as ref_parse_workload
 from repro_torch.workloads.hpc2n import (N_NODES, NODE_MEM_GB,
                                          hpc2n_like_trace, hpc2n_preprocess,
                                          iter_swf, parse_swf)
+from repro_torch.workloads import jobgen
 from repro_torch.workloads.registry import (WorkloadSpec, list_workloads,
                                             make_trace_ir, parse_workload,
                                             register_workload, workload_kind)
@@ -109,18 +113,80 @@ def test_swf_prefix_and_width_filter_act():
 
 def test_registry_lists_the_ported_kinds():
     kinds = set(list_workloads())
-    assert {"hpc2n", "lublin", "swf", "swf-stream"} <= kinds
-    assert "tpu" not in kinds
+    assert {"hpc2n", "lublin", "swf", "swf-stream", "tpu"} <= kinds
+    assert workload_kind("tpu").supports_load
+    assert workload_kind("tpu").params == ("records", "chips_per_task")
     assert workload_kind("lublin").supports_load
     assert workload_kind("swf").path_param == "path"
 
 
 @pytest.mark.parametrize("kind", ["tpu"])
 def test_unported_kinds_raise_naming_the_roadmap(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WorkloadSpec(kind, params={"path": MINI} if kind != "tpu" else {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every kind is ported now: the former one keeps the reference's knob
+    contract (no path argument, no ``path`` param) instead."""
+    for make in (RefWorkload, WorkloadSpec):
+        with pytest.raises(ValueError, match="does not accept"):
+            make(kind, params={"path": MINI})
+    with pytest.raises(ValueError, match="takes no"):
+        ref_parse_workload(f"{kind}:{MINI}")
+    with pytest.raises(ValueError, match="takes no"):
         parse_workload(f"{kind}:{MINI}")
+
+
+@pytest.mark.parametrize("size", [(80, 32, 0, None), (80, 32, 3, 0.9),
+                                  (120, 16, 1, 0.6), (40, 2, 2, None)])
+def test_tpu_kind_equals_reference(size):
+    n_jobs, n_nodes, seed, load = size
+    kw = dict(n_jobs=n_jobs, n_nodes=n_nodes, seed=seed, load=load)
+    got = make_trace_ir(WorkloadSpec("tpu", **kw))
+    _same_trace(got, ref_trace(RefWorkload("tpu", **kw)))
+    assert len(got) == n_jobs and (got.n_tasks <= n_nodes).all()
+
+
+#: roofline records in the dry run's format (one per arch x shape cell);
+#: the last has no dominant term and yields no job type
+RECORDS = [
+    {"arch": "llama3-8b", "shape": "train_4k", "compute_s": 0.91,
+     "memory_s": 0.40, "collective_s": 0.22, "bytes_per_device": 12.5e9,
+     "n_chips": 256},
+    {"arch": "rwkv6-7b", "shape": "decode_32k", "compute_s": 0.002,
+     "memory_s": 0.011, "collective_s": 0.001, "bytes_per_device": 9.1e9,
+     "n_chips": 16},
+    {"arch": "whisper", "shape": "prefill_1k", "compute_s": 0.05,
+     "memory_s": 0.02, "collective_s": 0.06, "bytes_per_device": 1.0e8},
+    {"arch": "empty", "shape": "none", "compute_s": 0.0, "memory_s": 0.0,
+     "collective_s": 0.0, "bytes_per_device": 0.0},
+]
+
+
+def test_tpu_job_types_equal_reference():
+    assert jobgen.HBM_BYTES == ref_jobgen.HBM_BYTES
+    assert ([dataclasses.astuple(t) for t in jobgen.DEFAULT_TPU_JOB_TYPES]
+            == [dataclasses.astuple(t)
+                for t in ref_jobgen.DEFAULT_TPU_JOB_TYPES])
+    for cpt in (16, 4):
+        mine = jobgen.tpu_job_types(RECORDS, chips_per_task=cpt)
+        theirs = ref_jobgen.tpu_job_types(RECORDS, chips_per_task=cpt)
+        assert len(mine) == 3
+        assert ([dataclasses.astuple(t) for t in mine]
+                == [dataclasses.astuple(t) for t in theirs])
+    with pytest.raises(ValueError, match="no job types fit"):
+        jobgen.tpu_trace(jobgen.DEFAULT_TPU_JOB_TYPES[:1], n_nodes=8)
+
+
+@pytest.mark.parametrize("chips_per_task", [None, 8])
+def test_tpu_records_file_equals_reference(tmp_path, chips_per_task):
+    path = tmp_path / "roofline.json"
+    path.write_text(json.dumps(RECORDS))
+    params = {"records": str(path)}
+    if chips_per_task is not None:
+        params["chips_per_task"] = chips_per_task
+    kw = dict(n_jobs=80, n_nodes=32, seed=4, load=0.7, params=params)
+    got = make_trace_ir(WorkloadSpec("tpu", **kw))
+    _same_trace(got, ref_trace(RefWorkload("tpu", **kw)))
+    default = make_trace_ir(WorkloadSpec("tpu", n_jobs=80, n_nodes=32,
+                                         seed=4, load=0.7))
+    assert got.fingerprint != default.fingerprint
 
 
 @pytest.mark.parametrize("make", [
