@@ -21,7 +21,12 @@ fails ends the run with exit code 1:
                by lane, on both routes, with lanes that have nothing
                active, lanes capped at 1 and lanes whose second round
                binds on near-ties (most must bind on a near-tie that is
-               not exact);
+               not exact); the node-usage scatter against its plain
+               version and in-order np.add.at at the stretch passes' paper
+               shapes (16 lanes, 128 nodes, up to 128 x 32 entries) and
+               ragged ones, with padding sentinels, entries outside the
+               nodes, an empty lane and a node whose sum depends on the
+               order of its adds;
 3. allocator — the batched OPT=MIN water-filling and the OPT=AVG floor on
                the card against the numpy kernels, 200 seeded random
                incidences each, bit for bit;
@@ -40,7 +45,9 @@ fails ends the run with exit code 1:
                and MINFT policies, and HPC2N (1000 jobs, 128 nodes, seed
                0) under EASY and GreedyPM */per/OPT=MIN/MINVT=600; every
                outcome field of every record must equal the host numpy
-               ``Engine`` run (timed by cell), both kernels must launch,
+               ``Engine`` run (timed by cell; the cells in a pool of
+               processes, one a core, after the card's run), both
+               kernels must launch,
                and the launch counts, busy share and peak memory are read
                as in phase 4;
 4c. slice session — open sessions on the card, under GreedyP */OPT=MIN:
@@ -86,6 +93,31 @@ fails ends the run with exit code 1:
                each against the host numpy tuner (decisions and result); the
                races, rungs and walls; launch counts, shapes, busy share
                and peak memory by part as in phase 4;
+4e. slice serve — the multi-tenant session server, every session on the
+               card, 128 nodes: (a) a ``ServerThread`` (store, 64 live,
+               no fsync) and 4 tenants, each a client in its own thread,
+               each opening 128 sessions (GreedyP */OPT=MIN; the first
+               of each tenant Greedy */OPT=AVG), submitting Lublin (100
+               jobs, load 0.7, the session's index as the seed) and
+               stepping it to 1,800 s; 2 sessions a tenant then ``run``
+               and ``result`` through the server, each against the host
+               numpy session of the same ops in every ``SimResult``
+               field, at least one rehydrated from the store by its
+               ``run``; any error response fails; sessions held, live at
+               peak, evictions, rehydrations, ops/s, the p50/p99 of each
+               op, launches and the commonest MIN shapes, the busy share,
+               device memory in use and at peak with 64 sessions held and
+               with 512 (it must not grow with them); (b) ``python -m
+               repro_torch serve`` (on the card) and ``client`` processes
+               drive phase 4's seed-0 trace to 20,000 s, the server is
+               killed with SIGKILL, restarted on its store, and the script
+               re-driven with ``run`` and ``result``: the first three ops
+               must come back as duplicates and the result must equal
+               phase 4's host run; (c) ``python -m repro_torch simulate``
+               of phase 4's seed-0 cell must equal its record and host
+               run, and ``python -m repro_torch tune`` of the
+               BENCH_tune.json demo must swap once at 6,000 s and end at
+               301.598467;
 5. serve kernels — flash attention, flash decode, the RG-LRU scan and the
                RWKV6 WKV recurrence against their plain versions on the
                card, fp32 and bf16, at RecurrentGemma-2B's shapes (a prompt
@@ -129,7 +161,8 @@ fails ends the run with exit code 1:
                ``torch.profiler`` for the card's busy share and kernel time
                by name;
 8. kernels line — per kernel: launches on its path (phase 4 or 7; the
-               allocation kernels' also by part of phases 4c and 4d), the
+               allocation kernels' also by part of phases 4c, 4d and 4e;
+               the node-usage kernel, which no path calls, on 4e's), the
                largest difference from its plain version, device times
                (CUDA events around a CUDA graph of many launches) of the
                kernel, its plain version and a library call computing the
@@ -155,6 +188,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -245,7 +279,14 @@ _OUTCOMES = ("max_stretch", "mean_stretch", "makespan", "underutilization",
              "bandwidth_gbps", "events", "hit_max_events", "final_time")
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when in the script it was
+    printed (``at_s``, seconds from the script's start)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -617,18 +658,91 @@ def phase_kernels(torch, np):
             # at the cluster's width, most round-2 bottlenecks are near-ties
             check["near_ties_ok"] = 2 * near > len(sets)
         checks.append(check)
+    usage_checks, usage_paper = node_usage_checks(torch, np, rng)
+    checks += usage_checks
     routes = {c["route"] for c in checks if "route" in c}
     ok = routes == {"shared", "global"} and all(
         c["equal_plain"] and c.get("equal_numpy", True)
         and c.get("equal_plain_rounds", True)
         and c.get("numpy_mismatched_lanes", 0) == 0
-        and c.get("near_ties_ok", True) for c in checks)
+        and c.get("near_ties_ok", True)
+        and c.get("order_sensitive", True) for c in checks)
     emit({"phase": "kernels", "ok": ok, "tolerance": "bit-exact",
           "checks": checks})
     if not ok:
         raise PhaseFailed("a kernel disagrees with its plain version or the "
                           "numpy kernel, a route went unchecked, or the "
                           "solve's inputs hold too few near-ties")
+    return usage_paper
+
+
+def usage_lists(np, rng, B, N, K):
+    """(B, K) node-usage scatter lists: per-lane lengths padded with the
+    sentinel N, an empty lane (lane 0), a lane whose first 64 entries
+    name one node with values whose sum depends on the order of the adds
+    (lane 1), entries outside [0, N] in lane 2, values over 18 orders of
+    magnitude."""
+    nodes = rng.integers(0, N, (B, K))
+    vals = rng.random((B, K)) * rng.choice([1e-9, 1.0, 1e9], (B, K))
+    lens = rng.integers(0, K + 1, B)
+    for b in range(B):
+        nodes[b, lens[b]:] = N
+    if B > 0:
+        nodes[0] = N
+    if B > 1 and K >= 64:
+        nodes[1, :64] = N // 2
+        vals[1, :64] = np.tile([1.0, 1e-16, -1.0, 3e-17], 16)
+    if B > 2 and K >= 4:
+        nodes[2, :4] = [-1, N + 5, -7, 2**40]
+    return nodes, vals
+
+
+def add_at_usage(np, nodes, vals, N):
+    """The stretch passes' in-order np.add.at, lane by lane."""
+    out = np.zeros((nodes.shape[0], N))
+    for b in range(nodes.shape[0]):
+        keep = (nodes[b] >= 0) & (nodes[b] < N)
+        np.add.at(out[b], nodes[b][keep], vals[b][keep])
+    return out
+
+
+def node_usage_checks(torch, np, rng):
+    """The node-usage kernel against its plain version on the card and
+    against in-order np.add.at, bit for bit: at the stretch passes' paper
+    shapes (16 lanes, 128 nodes, up to 128 x 32 entries), and at shapes
+    ragged against a block's 128 nodes and a tile's 2,048 entries.  Also
+    returns the paper shape's inputs and both results, which the kernels
+    line times."""
+    from repro_torch.kernels.node_usage import (node_usage_cuda,
+                                                node_usage_plain)
+
+    dev = torch.device("cuda")
+    checks, paper = [], None
+    for B, N, K in [(16, N_NODES, N_NODES * 32), (16, 128, 640), (3, 5, 37),
+                    (4, 200, 2049), (2, 16, 0)]:
+        nodes, vals = usage_lists(np, rng, B, N, K)
+        nt = torch.from_numpy(nodes).to(dev)
+        vt = torch.from_numpy(vals).to(dev)
+        k = node_usage_cuda(nt, vt, N)
+        p = node_usage_plain(nt, vt, N)
+        torch.cuda.synchronize()
+        if paper is None:
+            paper = {"nodes": nt, "vals": vt, "n_nodes": N, "kernel": k,
+                     "plain": p,
+                     "adds": int(((nodes >= 0) & (nodes < N)).sum())}
+        check = {"kernel": "node_usage", "shape": [B, N, K],
+                 "equal_plain": bool(torch.equal(k, p)),
+                 "equal_numpy": bool(np.array_equal(
+                     k.cpu().numpy(), add_at_usage(np, nodes, vals, N)))}
+        if B > 1 and K >= 64:
+            fwd = rev = 0.0
+            for v in vals[1, :64]:
+                fwd += v
+            for v in vals[1, 63::-1]:
+                rev += v
+            check["order_sensitive"] = bool(fwd != rev)
+        checks.append(check)
+    return checks, paper
 
 
 def phase_allocator(torch, np):
@@ -706,22 +820,26 @@ def device_busy(prof, wall_s):
     """What the trace saw of the card: seconds in which a kernel or a copy
     ran (the union of their intervals), that over ``wall_s``, seconds
     summed by kind (the port's kernels, other kernels, copies), the eight
-    names with the most summed seconds and the port's kernels by name."""
+    names with the most summed seconds and the port's kernels by name.
+    Reads kineto's raw events: building the profiler's ``FunctionEvent``
+    list instead costs tens of seconds in a phase of many dispatches."""
     spans, by_kind, by_name, by_port = [], Counter(), Counter(), Counter()
-    for e in prof.events():
-        if not str(e.device_type).endswith("CUDA"):
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
             continue
-        start, end = e.time_range.start, e.time_range.end
+        name = e.name()
+        start = e.start_ns() / 1e3                      # microseconds
+        end = start + e.duration_ns() / 1e3
         spans.append((start, end))
-        if e.name.startswith(("Memcpy", "Memset")):
+        if name.startswith(("Memcpy", "Memset")):
             kind = "copies"
-        elif any(k in e.name for k in _PORT_KERNELS):
+        elif any(k in name for k in _PORT_KERNELS):
             kind = "port_kernels"
-            by_port[e.name[:80]] += (end - start) / 1e6
+            by_port[name[:80]] += (end - start) / 1e6
         else:
             kind = "other_kernels"
         by_kind[kind] += (end - start) / 1e6
-        by_name[e.name[:80]] += (end - start) / 1e6
+        by_name[name[:80]] += (end - start) / 1e6
     if not spans:
         return {"busy_s": None, "busy_share": None, "device_events": 0,
                 "note": "the trace holds no device activity: not measured"}
@@ -802,15 +920,34 @@ def _shapes(stats):
                            in stats["avg_shapes"].most_common(6)}}
 
 
-def drive_cells(torch, np, cells):
+def _host_cell(cell):
+    """One cell on the host numpy ``Engine``: its ``SimResult``, the run's
+    wall and its allocation seconds."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.sched.engine import Engine, SimParams
+    from repro_torch.workloads.registry import make_trace_ir
+
+    trace = make_trace_ir(cell.workload)        # set-up, not run
+    alloc = TimedHostAlloc()
+    t0 = time.perf_counter()
+    ref = Engine(trace, cell.policy, SimParams(n_nodes=cell.workload.n_nodes),
+                 alloc_backend=alloc).run()
+    return ref, time.perf_counter() - t0, alloc.seconds
+
+
+def drive_cells(torch, np, cells, host_workers=0):
     """``run_batched`` over ``cells`` on the card, then each cell on the
     host numpy ``Engine``: the records, the sweep's wall, the launch counts
     and routes (zeroed just before the run, read just after), peak device
     memory over the start, the traced busy share, each cell's host wall,
     the host run's allocation seconds and the cells whose outcome fields
     differ from the host run (or whose max stretch is not finite and at
-    least 1)."""
-    from repro_torch.sched.engine import Engine, SimParams
+    least 1).  With ``host_workers``, the host runs go to a pool of that
+    many processes once the card's run has ended (its wall is
+    ``host_pool_wall_s``)."""
+    import multiprocessing
+
     from repro_torch.sched.sweep import run_batched
     from repro_torch.workloads.registry import make_trace_ir
 
@@ -818,22 +955,27 @@ def drive_cells(torch, np, cells):
         make_trace_ir(c.workload)               # traces are set-up, not run
     res, line = _traced(torch, lambda: run_batched(cells, device="cuda"))
 
-    host_alloc = TimedHostAlloc()
-    host_walls, mismatches = [], []
-    for c, rec in zip(cells, res.records):
-        t1 = time.perf_counter()
-        ref = Engine(make_trace_ir(c.workload), c.policy,
-                     SimParams(n_nodes=c.workload.n_nodes),
-                     alloc_backend=host_alloc).run()
-        host_walls.append(time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    if host_workers:
+        # forkserver: no worker is a fork of this process's CUDA context
+        ctx = multiprocessing.get_context("forkserver")
+        with ctx.Pool(host_workers) as pool:
+            hosts = list(pool.imap(_host_cell, cells, chunksize=1))
+    else:
+        hosts = [_host_cell(c) for c in cells]
+    pool_wall = time.perf_counter() - t1 if host_workers else None
+    mismatches = []
+    for c, rec, (ref, _, _) in zip(cells, res.records, hosts):
         bad = [k for k in _OUTCOMES if rec[k] != getattr(ref, k)]
         if not np.isfinite(rec["max_stretch"]) or rec["max_stretch"] < 1.0:
             bad.append("max_stretch not finite and >= 1")
         if bad:
             mismatches.append({"cell": c.name, "fields": bad})
     return {"res": res, "line": line, "launches": line["launches"],
-            "host_walls": host_walls, "host_alloc_s": host_alloc.seconds,
-            "mismatches": mismatches}
+            "host_walls": [h[1] for h in hosts],
+            "host_alloc_s": sum(h[2] for h in hosts),
+            "host_pool_wall_s": pool_wall,
+            "mismatches": mismatches, "host_results": [h[0] for h in hosts]}
 
 
 def sweep_line(run):
@@ -868,7 +1010,9 @@ def phase_slice(torch, np):
     if not ok:
         raise PhaseFailed("the slice disagrees with the host run or did not "
                           "reach a kernel")
-    return launches, res.alloc_stats
+    # the seed-0 OPT=MIN cell, on the card and on the host: phase 4e's yardstick
+    return launches, res.alloc_stats, (res.records[0],
+                                       run["host_results"][0])
 
 
 def phase_slice_mcb8(torch, np):
@@ -883,7 +1027,8 @@ def phase_slice_mcb8(torch, np):
     hpc2n = WorkloadSpec("hpc2n", n_jobs=HPC2N_JOBS, n_nodes=N_NODES, seed=0)
     cells = ([Cell(lublin, p) for p in MCB8_LUBLIN]
              + [Cell(hpc2n, p) for p in MCB8_HPC2N])
-    run = drive_cells(torch, np, cells)
+    run = drive_cells(torch, np, cells, host_workers=min(
+        len(cells), os.cpu_count() or 1))
     res, launches = run["res"], run["launches"]
     host_by_policy = Counter()
     for c, s in zip(cells, run["host_walls"]):
@@ -895,6 +1040,7 @@ def phase_slice_mcb8(torch, np):
           "host_reference_wall_s": sum(run["host_walls"]),
           "host_reference_alloc_s": run["host_alloc_s"],
           "host_reference_s_by_cell": dict(host_by_policy),
+          "host_pool_wall_s": run["host_pool_wall_s"],
           "mismatches": run["mismatches"],
           "stretch": {f"{c.workload.kind} {c.policy}":
                       {"max": rec["max_stretch"], "mean": rec["mean_stretch"],
@@ -1403,6 +1549,409 @@ def phase_slice_scenarios(torch, np):
     return {"grid": grid_part["launches"], "sweep": sw["first_launches"],
             "chaos": chaos["launches"], "tune_demo": demo["launches"],
             "tune_paper": paper["launches"]}
+
+
+# --------------------------------------------------------------------------- #
+# phase 4e: the multi-tenant session server                                    #
+# --------------------------------------------------------------------------- #
+# (a) 4 tenants x 128 sessions over 64 live, each session Lublin (100 jobs,
+# load 0.7, its index as the seed) on 128 nodes stepped to 1,800 s; one
+# session a tenant (its first) under OPT=AVG; a parity sample of 2 a tenant
+SERVE_TENANTS, SERVE_PER_TENANT, SERVE_MAX_LIVE = 4, 128, 64
+SERVE_JOBS, SERVE_UNTIL_S = 100, 1800.0
+SERVE_POLICY, SERVE_AVG_POLICY = "GreedyP */OPT=MIN", "Greedy */OPT=AVG"
+SERVE_SAMPLE = (0, 64)
+# (b) phase 4's trace through the CLI's server and client, killed with
+# SIGKILL after this sim time
+KILL9_UNTIL_S = 20_000.0
+
+
+def _serve_session(k, i):
+    """Tenant k's session i: its name, index (its trace's seed), policy."""
+    return (f"s{i}", k * SERVE_PER_TENANT + i,
+            SERVE_AVG_POLICY if i == 0 else SERVE_POLICY)
+
+
+def _quantiles_ms(np, xs):
+    a = np.asarray(xs, dtype=np.float64) * 1e3
+    return {"n": int(a.size), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)), "max_ms": float(a.max())}
+
+
+def _wire(fields):
+    """An outcome dict as the server's JSON carries it (dict keys as
+    strings)."""
+    return json.loads(json.dumps(fields))
+
+
+def _wire_result(resp):
+    return {k: v for k, v in resp.items()
+            if k not in ("id", "ok", "partial", "sim_wall_s", "kind")}
+
+
+def _host_session(policy, seed, until):
+    """The ops of one served session on the port's host numpy session."""
+    from repro_torch import api
+
+    ses = api.open_session(N_NODES, policy, alloc_backend="numpy")
+    ses.submit(api.parse_workload("lublin", n_jobs=SERVE_JOBS,
+                                  n_nodes=N_NODES, seed=seed, load=LOAD))
+    ses.step_until(until)
+    ses.run_to_exhaustion()
+    return _result_fields(ses.result())
+
+
+def _serve_tenant(port, k, lat, barrier, errors):
+    """One tenant's client thread: its sessions one after another (open,
+    submit, step_until), parked at the barrier once 64 are held."""
+    from repro_torch.serve.client import Client
+
+    try:
+        with Client("127.0.0.1", port, tenant=f"t{k}", timeout=900.0) as c:
+            for i in range(SERVE_PER_TENANT):
+                name, seed, policy = _serve_session(k, i)
+                for op, call in (
+                        ("open", lambda: c.open(name, policy,
+                                                nodes=N_NODES)),
+                        ("submit", lambda: c.submit(
+                            name, workload="lublin", jobs=SERVE_JOBS,
+                            seed=seed, nodes=N_NODES, load=LOAD)),
+                        ("step_until", lambda: c.step_until(
+                            name, SERVE_UNTIL_S))):
+                    t0 = time.perf_counter()
+                    call()
+                    lat[op].append(time.perf_counter() - t0)
+                if i + 1 == SERVE_MAX_LIVE // SERVE_TENANTS:
+                    barrier.wait(timeout=900)   # 64 held: memory is read
+                    barrier.wait(timeout=900)
+    except BaseException as exc:  # noqa: BLE001 — reported by the phase
+        errors.append(f"t{k}: {type(exc).__name__}: {exc}")
+        barrier.abort()
+
+
+def _held(torch, reg, base):
+    torch.cuda.synchronize()
+    return {"sessions_held": reg.n_sessions, "live": reg.n_live,
+            "allocated_bytes": torch.cuda.memory_allocated() - base,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def serve_tenants(torch, np, tmp):
+    """(a) many tenants in process, every session allocating on the card."""
+    import threading
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServerThread
+    from repro_torch.serve.client import Client
+
+    shapes = Counter()
+    solve = ops.maxmin_solve
+
+    def counting(present, weight, active):
+        shapes[tuple(weight.shape)] += 1
+        return solve(present, weight, active)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    srv = ServerThread(ServeConfig(device="cuda", store=str(Path(tmp) / "a"),
+                                   max_live=SERVE_MAX_LIVE,
+                                   fsync=False)).start()
+    reg = srv.server.registry
+    peak_live = [0]
+    evict = reg.evict_over_cap
+
+    def watched():                      # runs after every op
+        peak_live[0] = max(peak_live[0], reg.n_live)
+        return evict()
+
+    reg.evict_over_cap = watched
+    ops.maxmin_solve = counting
+    errors, mismatches, sample = [], [], []
+    lat = {"open": [], "submit": [], "step_until": []}
+    try:
+        barrier = threading.Barrier(SERVE_TENANTS + 1)
+        prof, trace_error = start_device_trace(torch)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        at_max_live = None
+        threads = [threading.Thread(target=_serve_tenant,
+                                    args=(srv.port, k, lat, barrier, errors))
+                   for k in range(SERVE_TENANTS)]
+        for th in threads:
+            th.start()
+        paused = 0.0
+        for _ in range(2):
+            try:
+                barrier.wait(timeout=900)
+            except threading.BrokenBarrierError:
+                pass
+            if at_max_live is None:
+                # the tenants are parked while the memory is read; the
+                # pause is not in their wall
+                t1 = time.perf_counter()
+                at_max_live = _held(torch, reg, base)
+                paused = time.perf_counter() - t1
+        for th in threads:
+            th.join(timeout=1200)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+        wall = traced - paused
+        t1 = time.perf_counter()
+        busy = stop_device_trace(prof, trace_error, traced)
+        busy["trace_read_s"] = time.perf_counter() - t1
+        at_all = _held(torch, reg, base)
+        # the parity sample, through the server: run and result
+        for k in range(SERVE_TENANTS):
+            with Client("127.0.0.1", srv.port, tenant=f"t{k}",
+                        timeout=900.0) as c:
+                for i in SERVE_SAMPLE:
+                    name, seed, policy = _serve_session(k, i)
+                    evicted = not reg.entries[(f"t{k}", name)].live
+                    before = reg.n_rehydrations
+                    # a new connection: the session's next seq given (its
+                    # open, submit and step_until took 0-2)
+                    ran = c.call("run", name, seq=3)
+                    got = _wire_result(c.result(name))
+                    rehydrated = reg.n_rehydrations > before
+                    ref = _wire(_host_session(policy, seed, SERVE_UNTIL_S))
+                    bad = sorted(f for f in ref if got.get(f) != ref[f])
+                    if ran.get("dup"):
+                        bad.append("run answered as a duplicate")
+                    sample.append({"tenant": f"t{k}", "session": name,
+                                   "seed": seed, "policy": policy,
+                                   "evicted_before_run": evicted,
+                                   "rehydrated_by_run": rehydrated,
+                                   "max_stretch": got["max_stretch"],
+                                   "mismatched_fields": bad})
+                    if bad:
+                        mismatches.append(f"t{k}/{name}: {bad[:6]}")
+            torch.cuda.synchronize()
+        launches = {k: ops.launches[k]
+                    for k in ("alloc_matvec", "maxmin_solve", "node_usage")}
+        with Client("127.0.0.1", srv.port, tenant="t0") as c:
+            stats = c.stats()["registry"]
+    except Exception as exc:  # noqa: BLE001 — a failed check, reported
+        errors.append(f"{type(exc).__name__}: {exc}")
+        launches, stats, wall, busy = {}, {}, 0.0, {}
+        at_all = None
+    finally:
+        ops.maxmin_solve = solve
+        srv.stop()
+    n_ops = sum(len(v) for v in lat.values())
+    return {"tenants": SERVE_TENANTS, "sessions_per_tenant": SERVE_PER_TENANT,
+            "max_live": SERVE_MAX_LIVE, "n_nodes": N_NODES,
+            "jobs_per_session": SERVE_JOBS, "load": LOAD,
+            "until_s": SERVE_UNTIL_S, "policy": SERVE_POLICY,
+            "avg_policy": SERVE_AVG_POLICY, "errors": errors,
+            "wall_s": wall, "ops": n_ops,
+            "ops_per_s": n_ops / wall if wall else None,
+            "latency": {op: _quantiles_ms(np, v) for op, v in lat.items()
+                        if v},
+            "registry": stats, "live_at_peak": peak_live[0],
+            "launches": launches,
+            "min_shapes": {str(k): v for k, v in shapes.most_common(6)},
+            "device": busy, "memory_at_max_live": at_max_live,
+            "memory_at_all_held": at_all, "sample": sample,
+            "mismatches": mismatches}
+
+
+def _cli_env():
+    """This process's environment with the checkout's ``src`` first on
+    the module path."""
+    path = [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(path)}
+
+
+def _repro_torch_cli(args, script=None, timeout=900):
+    """``python -m repro_torch <args>`` from the root of this checkout."""
+    return subprocess.run([sys.executable, "-m", "repro_torch", *args],
+                          input=script, capture_output=True, text=True,
+                          timeout=timeout, env=_cli_env(), cwd=str(ROOT))
+
+
+def _spawn_cli_server(store, port_file, log):
+    """``python -m repro_torch serve`` on the card, once it announced its
+    port: the process, the port and the seconds it took."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "serve", "--store", store,
+         "--port-file", port_file], stdout=log, stderr=subprocess.STDOUT,
+        env=_cli_env(), cwd=str(ROOT))
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        if Path(port_file).exists():
+            return proc, int(Path(port_file).read_text()), \
+                time.perf_counter() - t0
+        if proc.poll() is not None:
+            raise PhaseFailed(f"the CLI server exited with {proc.returncode} "
+                              f"at startup")
+        time.sleep(0.1)
+    proc.kill()
+    proc.wait(timeout=60)
+    raise PhaseFailed("the CLI server did not announce a port in 300 s")
+
+
+def _client_lines(proc):
+    if proc.returncode != 0:
+        raise PhaseFailed(f"the CLI client exited with {proc.returncode}: "
+                          f"{proc.stderr[-2000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines()]
+
+
+def serve_kill9(tmp, seed0):
+    """(b) phase 4's trace through ``python -m repro_torch serve`` (on the
+    card) and ``client``, the server killed with SIGKILL, restarted on its
+    store and the script re-driven, ``run`` and ``result`` added."""
+    import signal
+
+    store, port_file = str(Path(tmp) / "b"), str(Path(tmp) / "b.port")
+    script = [
+        {"op": "open", "session": "s0", "seq": 0, "policy": SERVE_POLICY,
+         "nodes": N_NODES},
+        {"op": "submit", "session": "s0", "seq": 1, "workload": "lublin",
+         "jobs": N_JOBS, "seed": 0, "nodes": N_NODES, "load": LOAD},
+        {"op": "step_until", "session": "s0", "seq": 2, "t": KILL9_UNTIL_S}]
+    again = script + [{"op": "run", "session": "s0", "seq": 3},
+                      {"op": "result", "session": "s0"}]
+    walls, procs = {}, []
+    with open(Path(tmp) / "b.log", "w") as log:
+        try:
+            proc, port, walls["first_start_s"] = _spawn_cli_server(
+                store, port_file, log)
+            procs.append(proc)
+            t0 = time.perf_counter()
+            first = _client_lines(_repro_torch_cli(
+                ["client", "--port", str(port), "--script", "-"],
+                "\n".join(json.dumps(e) for e in script) + "\n"))
+            walls["first_drive_s"] = time.perf_counter() - t0
+            os.kill(proc.pid, signal.SIGKILL)   # no cleanup, no persist
+            proc.wait(timeout=60)
+            journal = sum(1 for _ in open(Path(store) / "default"
+                                          / "s0.journal"))
+            os.unlink(port_file)
+            proc, port, walls["second_start_s"] = _spawn_cli_server(
+                store, port_file, log)
+            procs.append(proc)
+            t0 = time.perf_counter()
+            second = _client_lines(_repro_torch_cli(
+                ["client", "--port", str(port), "--script", "-",
+                 "--retry-for", "120"],
+                "\n".join(json.dumps(e) for e in again) + "\n"))
+            walls["second_drive_s"] = time.perf_counter() - t0
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=60)
+    _, host = seed0
+    got = _wire_result(second[-1])
+    ref = _wire(_result_fields(host))
+    bad = sorted(f for f in ref if got.get(f) != ref[f])
+    return {"jobs": N_JOBS, "n_nodes": N_NODES, "load": LOAD,
+            "policy": SERVE_POLICY, "killed_after_s": KILL9_UNTIL_S,
+            "journal_entries_at_kill": journal,
+            "first_kinds": [line["kind"] for line in first],
+            "first_events": first[-1].get("events"),
+            "second_kinds": [line["kind"] for line in second],
+            "duplicates": [bool(line.get("dup")) for line in second[:3]],
+            "max_stretch": got.get("max_stretch"), "events": got.get("events"),
+            "mismatched_fields": bad, **walls}
+
+
+def serve_cli(seed0):
+    """(c) the CLI on the card: ``simulate`` of phase 4's seed-0 cell and
+    the tune demo of BENCH_tune.json."""
+    record, host = seed0
+    t0 = time.perf_counter()
+    sim = _repro_torch_cli(["simulate", "--policy", SERVE_POLICY,
+                            "--workload", "lublin", "--jobs", str(N_JOBS),
+                            "--nodes", str(N_NODES), "--loads", str(LOAD),
+                            "--json"])
+    sim_wall = time.perf_counter() - t0
+    if sim.returncode != 0:
+        raise PhaseFailed(f"simulate exited with {sim.returncode}: "
+                          f"{sim.stderr[-2000:]}")
+    got = json.loads(sim.stdout)
+    got.pop("sim_wall_s", None)
+    bad_record = [k for k in _OUTCOMES if got[k] != record[k]]
+    ref = _wire(_result_fields(host))
+    bad_host = sorted(f for f in ref if got.get(f) != ref[f])
+    t0 = time.perf_counter()
+    tune = _repro_torch_cli([
+        "tune", "--policy", TUNE_INCUMBENT, "--spec", TUNE_SPEC,
+        "--workload", "lublin", "--jobs", str(TUNE_JOBS), "--nodes",
+        str(TUNE_NODES), "--seeds", str(TUNE_SEED), "--loads",
+        str(TUNE_LOAD), "--seed", str(TUNER_SEED), "--fail-at",
+        str(TUNE_FAIL_T), "--fail-nodes", str(len(TUNE_RACK)), "--join-at",
+        str(TUNE_JOIN_T), "--json"])
+    tune_wall = time.perf_counter() - t0
+    if tune.returncode != 0:
+        raise PhaseFailed(f"tune exited with {tune.returncode}: "
+                          f"{tune.stderr[-2000:]}")
+    out = json.loads(tune.stdout)
+    swaps = [{"t": d["t"], "to": d["winner"]["policy"]}
+             for d in out["decisions"] if d["swapped"]]
+    stretch = out["result"]["max_stretch"]
+    return {"simulate": {"wall_s": sim_wall, "max_stretch": got["max_stretch"],
+                         "events": got["events"],
+                         "record_mismatches": bad_record,
+                         "host_mismatches": bad_host},
+            "tune": {"wall_s": tune_wall, "races": len(out["decisions"]),
+                     "swaps": swaps, "final_policy": out["final_policy"],
+                     "max_stretch": stretch,
+                     "demo_ok": (len(swaps) == 1 and swaps[0]["t"] == 6000.0
+                                 and swaps[0]["to"] == TUNE_PORTFOLIO[1]
+                                 and round(stretch, 6)
+                                 == TUNE_DEMO_STRETCH)}}
+
+
+def phase_slice_serve(torch, np, seed0):
+    """The multi-tenant session server with its sessions on the card: many
+    tenants in process, kill -9 recovery through the CLI's processes, and
+    the CLI's simulate and tune."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tenants = serve_tenants(torch, np, tmp)
+        emit({"phase": "slice serve", "part": "tenants", **tenants})
+        kill9 = serve_kill9(tmp, seed0)
+        emit({"phase": "slice serve", "part": "kill9", **kill9})
+    cli = serve_cli(seed0)
+    emit({"phase": "slice serve", "part": "cli", **cli})
+    held, at64 = tenants["memory_at_all_held"], tenants["memory_at_max_live"]
+    launches = tenants["launches"]
+    ok = (not tenants["errors"] and not tenants["mismatches"]
+          and len(tenants["sample"]) == SERVE_TENANTS * len(SERVE_SAMPLE)
+          and any(s["evicted_before_run"] and s["rehydrated_by_run"]
+                  for s in tenants["sample"])
+          and tenants["registry"].get("sessions")
+          == SERVE_TENANTS * SERVE_PER_TENANT
+          and tenants["live_at_peak"] <= SERVE_MAX_LIVE + 1
+          and launches.get("maxmin_solve", 0) > 0
+          and launches.get("alloc_matvec", 0) > 0
+          and held is not None and at64 is not None
+          and held["allocated_bytes"] <= at64["allocated_bytes"] + 2**20
+          and kill9["duplicates"] == [True, True, True]
+          and not kill9["mismatched_fields"]
+          and not cli["simulate"]["record_mismatches"]
+          and not cli["simulate"]["host_mismatches"]
+          and cli["tune"]["demo_ok"])
+    emit({"phase": "slice serve", "ok": ok,
+          "wall_s": time.perf_counter() - t0,
+          "parts_wall_s": {"tenants": tenants["wall_s"],
+                           "kill9": sum(v for k, v in kill9.items()
+                                        if k.endswith("_s")
+                                        and k != "killed_after_s"),
+                           "simulate": cli["simulate"]["wall_s"],
+                           "tune": cli["tune"]["wall_s"]}})
+    if not ok:
+        raise PhaseFailed("the served sessions disagree with the host run, "
+                          "a request failed, device memory grew with the "
+                          "sessions held, or a kernel was not reached")
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -2165,7 +2714,8 @@ def wkv6_entries(torch, np, launches, prompt_lens, routes, functions):
 
 
 def phase_kernel_line(torch, np, launches, stats, functions,
-                      session_launches, scenario_launches):
+                      session_launches, scenario_launches, serve_launches,
+                      usage_paper):
     from repro_torch.kernels.alloc_matvec import (alloc_matvec_cuda,
                                                   alloc_matvec_plain)
     from repro_torch.kernels.maxmin_solve import (maxmin_solve_cuda,
@@ -2196,6 +2746,7 @@ def phase_kernel_line(torch, np, launches, stats, functions,
                              for k, v in session_launches.items()},
         "launches_scenarios": {k: v["alloc_matvec"]
                                for k, v in scenario_launches.items()},
+        "launches_serve": serve_launches["alloc_matvec"],
         "ptxas": ptxas_of(functions, "alloc_matvec_kernel"),
         "max_abs_err": float((k - p).abs().max()) if k.numel() else 0.0,
         "library_max_abs_diff": float((k - lib).abs().max()),
@@ -2241,6 +2792,7 @@ def phase_kernel_line(torch, np, launches, stats, functions,
                              for k, v in session_launches.items()},
         "launches_scenarios": {k: v["maxmin_solve"]
                                for k, v in scenario_launches.items()},
+        "launches_serve": serve_launches["maxmin_solve"],
         "ptxas": ptxas_of(functions, "maxmin_solve_kernelILb"
                           + ("1" if route == "shared" else "0")),
         "rounds_mean": float(rounds.mean()), "rounds_max": int(rounds.max()),
@@ -2254,9 +2806,67 @@ def phase_kernel_line(torch, np, launches, stats, functions,
         "bound_ms": sv_bound, "bound_by": sv_by,
         "bound_rate": "HBM 3.35 TB/s; FP64 34 TFLOP/s",
     }
-    kernels = [matvec, solve]
-    ok = all(e["launches"] > 0 and e["max_abs_err"] == 0.0 for e in kernels)
+    usage = node_usage_entry(torch, functions, serve_launches["node_usage"],
+                             usage_paper)
+    kernels = [matvec, solve, usage]
+    # node_usage is on no path (the stretch passes scatter on the host), so
+    # only the path's kernels must have launched
+    ok = all((e["launches"] > 0 or not e["on_main_path"])
+             and e["max_abs_err"] == 0.0 for e in kernels)
     return kernels, ok
+
+
+def node_usage_entry(torch, functions, launches, paper):
+    """The node-usage kernel on phase 2's lists at the stretch passes'
+    paper shape (16 lanes, 128 nodes, 128 x 32 entries a lane), timed
+    against its plain version and ``index_add_`` (atomics: not bit-equal
+    in general, and not used by the port)."""
+    from repro_torch.kernels.node_usage import (node_usage_cuda,
+                                                node_usage_plain)
+
+    nodes, vals, N = paper["nodes"], paper["vals"], paper["n_nodes"]
+    k, p = paper["kernel"], paper["plain"]
+    dev = nodes.device
+    B, K = vals.shape
+    # index_add_ over the in-range entries, each lane's block of N outputs
+    keep = (nodes >= 0) & (nodes < N)
+    flat = (nodes + torch.arange(B, device=dev)[:, None] * N)[keep]
+    flat_vals = vals[keep]
+
+    def library():
+        out = torch.zeros(B * N, dtype=torch.float64, device=dev)
+        return out.index_add_(0, flat, flat_vals)
+
+    lib = library().view(B, N)
+    bound, by = bound_ms(B * K * (8 + 8) + B * N * 8, paper["adds"])
+    return {
+        "name": "node_usage", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/alloc.cu",
+        "wrapper": "src/repro_torch/kernels/node_usage.py",
+        "replaces": "src/repro/core/alloc_jax.py:317-348",
+        # counted on phase 4e's run, as every launch count of the line
+        "launches": launches, "on_main_path": False,
+        "launches_note": "no path calls it: the stretch passes scatter "
+                         "with np.add.at on the host",
+        "shape": [B, N, K],
+        "ptxas": ptxas_of(functions, "node_usage_kernel"),
+        "max_abs_err": float((k - p).abs().max()),
+        "equal_plain": bool(torch.equal(k, p)),
+        "ms": device_ms(torch, lambda: node_usage_cuda(nodes, vals, N), 200),
+        "eager_ms": eager_ms(torch, lambda: node_usage_cuda(nodes, vals, N),
+                             200),
+        # K small launches a call: eager, a few calls
+        "plain_ms": eager_ms(torch, lambda: node_usage_plain(nodes, vals, N),
+                             3),
+        "plain_ms_how": "eager (one small launch a list column)",
+        "library": "torch.Tensor.index_add_",
+        "library_ms": device_ms(torch, library, 200),
+        "library_bit_equal": bool(torch.equal(lib, k)),
+        "library_note": "atomic adds in a run-dependent order: not "
+                        "bit-equal to the in-order sum in general",
+        "bound_ms": bound, "bound_by": by,
+        "bound_rate": "HBM 3.35 TB/s",
+    }
 
 
 def main() -> int:
@@ -2279,17 +2889,19 @@ def main() -> int:
     try:
         smi_line, libraries, hgmma = phase_device(torch, cuda_lib)
         phase = "kernels"
-        phase_kernels(torch, np)
+        usage_paper = phase_kernels(torch, np)
         phase = "allocator"
         phase_allocator(torch, np)
         phase = "slice"
-        launches, stats = phase_slice(torch, np)
+        launches, stats, seed0 = phase_slice(torch, np)
         phase = "slice mcb8"
         phase_slice_mcb8(torch, np)
         phase = "slice session"
         session_launches = phase_slice_session(torch, np)
         phase = "slice scenarios"
         scenario_launches = phase_slice_scenarios(torch, np)
+        phase = "slice serve"
+        serve_launches = phase_slice_serve(torch, np, seed0)
         phase = "serve kernels"
         phase_serve_kernels(torch)
         for arch in SERVE_ARCHS:
@@ -2302,7 +2914,8 @@ def main() -> int:
         phase = "kernels line"
         alloc_entries, alloc_ok = phase_kernel_line(
             torch, np, launches, stats, libraries["alloc"]["ptxas"],
-            session_launches, scenario_launches)
+            session_launches, scenario_launches, serve_launches,
+            usage_paper)
         serve_entries, serve_ok = serve_kernel_entries(
             torch, np, *served[RG], libraries["attention"]["ptxas"], hgmma,
             libraries["rglru"]["ptxas"])

@@ -41,38 +41,91 @@
                                 load=0.7))
     r = ses.run()
 
+    # the multi-tenant session server, its sessions on the card
+    api.serve(store="var/serve", max_live=64)            # blocking
+    c = api.connect(port=PORT, tenant="acme")
+    c.open("s0", "GreedyP */OPT=MIN", nodes=128)
+
 Every entry point takes ``device="cuda"`` unless the caller passes
-``device="cpu"``; with no CUDA device the default raises.
+``device="cpu"``; with no CUDA device the default raises.  The same
+surface is scriptable as ``python -m repro_torch``.
 """
 from __future__ import annotations
 
 import time as _time
 from dataclasses import replace
-from typing import Any, Iterable, Optional, Sequence, Union
+from typing import Any, Dict, Iterable, Optional, Sequence, Union
 
 from .core.alloc_torch import TorchAllocBackend
+from .core.bound import max_stretch_lower_bound
 from .core.job import JobSpec
-from .core.policies import PolicySpec
+from .core.policies import (PolicySpec, TABLE1_POLICIES, all_paper_policies,
+                            parse_policy, render_policy)
 from .sched.cluster import ClusterEvent
+from .sched.components import (ComposedPolicy, Component, compose,
+                               compose_from_spec, get_component,
+                               list_components, register_component,
+                               register_policy, registered_policies,
+                               resolve_policy)
 from .sched.engine import Engine, Policy, SimParams, SimResult
-from .sched.narrator import Narrator, parse_narrator
+from .sched.narrator import (Narrator, list_streams, narrator_docs,
+                             parse_narrator, register_stream)
 from .sched.scenarios import (apply_scenario, apply_scenario_trace,
-                              list_scenarios, run_reactive)
+                              list_reactive, list_scenarios,
+                              parse_scenario_chain, reactive_docs,
+                              register_reactive, register_scenario,
+                              run_reactive, scenario_docs)
 from .sched.session import SessionState, SimSession, open_session
 from .sched.sweep import (Cell, RecordCache, SweepResult, grid, run_batched,
                           run_branches, run_grid)
-from .tune import AutoTuner, TuneConfig, race
-from .workloads.registry import (WorkloadSpec, list_workloads, make_trace_ir,
-                                 parse_workload, stream_trace)
+from .serve.admission import CreditParams
+from .serve.client import Client, ServeError, connect
+from .serve.server import ServeConfig, ServerThread
+from .serve.server import run_server as _run_server
+from .tune import (AutoTuner, Objective, RaceResult, TuneConfig, Variant,
+                   list_objectives, parse_objective, parse_tune, race)
+from .workloads.registry import (WorkloadSpec, list_workloads, make_trace,
+                                 make_trace_ir, parse_workload,
+                                 register_workload, stream_trace,
+                                 workload_kind)
 from .workloads.trace import Trace, as_trace
 
-__all__ = ["simulate", "sweep", "grid", "run_grid", "run_batched",
-           "run_branches", "RecordCache", "open_session", "SimSession",
-           "SessionState", "stream_trace", "list_workloads", "parse_workload",
-           "WorkloadSpec", "Cell", "SweepResult", "SimParams", "SimResult",
-           "Trace", "ClusterEvent", "apply_scenario", "apply_scenario_trace",
-           "list_scenarios", "run_reactive", "Narrator", "parse_narrator",
-           "autotune", "AutoTuner", "TuneConfig", "race"]
+__all__ = [
+    # one-call entry points
+    "simulate", "sweep", "list_policies",
+    # streaming sessions
+    "open_session", "SimSession", "SessionState",
+    # scheduler-as-a-service (multi-tenant session server + client)
+    "serve", "connect", "Client", "ServeError", "ServeConfig",
+    "CreditParams", "ServerThread",
+    # policy surface
+    "PolicySpec", "parse_policy", "render_policy", "TABLE1_POLICIES",
+    "all_paper_policies", "Policy", "ComposedPolicy", "Component",
+    "compose", "compose_from_spec", "get_component", "list_components",
+    "register_component", "register_policy", "registered_policies",
+    "resolve_policy",
+    # engine + metrics
+    "Engine", "SimParams", "SimResult", "max_stretch_lower_bound",
+    # workloads + scenarios
+    "JobSpec", "Trace", "as_trace", "WorkloadSpec", "make_trace",
+    "make_trace_ir", "parse_workload", "register_workload",
+    "workload_kind", "list_workloads", "stream_trace",
+    "ClusterEvent", "apply_scenario", "apply_scenario_trace",
+    "parse_scenario_chain", "list_scenarios", "scenario_docs",
+    "register_scenario",
+    # reactive scenarios
+    "run_reactive", "register_reactive", "list_reactive", "reactive_docs",
+    # chaos narrator
+    "Narrator", "parse_narrator", "register_stream", "list_streams",
+    "narrator_docs",
+    # sweeps
+    "Cell", "SweepResult", "RecordCache", "grid", "run_grid", "run_batched",
+    "run_branches",
+    # online autotuning
+    "autotune", "AutoTuner", "TuneConfig", "parse_tune", "race",
+    "RaceResult", "Variant", "Objective", "parse_objective",
+    "list_objectives",
+]
 
 TraceLike = Union[WorkloadSpec, Trace, Sequence[JobSpec]]
 PolicyLike = Union[str, PolicySpec, Policy]
@@ -83,7 +136,9 @@ def simulate(
     policy: PolicyLike,
     params: Optional[SimParams] = None,
     *,
+    scenario: Optional[str] = None,
     cluster_events: Sequence[ClusterEvent] = (),
+    seed: Optional[int] = None,
     device="cuda",
     **param_overrides: Any,
 ) -> SimResult:
@@ -93,25 +148,36 @@ def simulate(
     from the spec), a columnar :class:`Trace`, or a ``JobSpec`` sequence
     (for the latter two pass ``params`` or ``n_nodes=``).  ``policy`` is a
     grammar string, a registered composition name, a :class:`PolicySpec`,
-    or a :class:`Policy`.  Extra keyword arguments override
-    :class:`SimParams` fields.
+    or a :class:`Policy`.  A named ``scenario`` — possibly a ``"a+b"``
+    chain — perturbs the cell, seeded by ``seed`` (default: the
+    workload's own seed, or 0 for a raw trace).  Extra keyword arguments
+    override :class:`SimParams` fields.
     """
+    if scenario is not None and cluster_events:
+        raise ValueError("pass either scenario= or cluster_events=, not both")
     backend = TorchAllocBackend(device=device)
     explicit_n = param_overrides.pop("n_nodes", None)
     if isinstance(trace, WorkloadSpec):
         tr = make_trace_ir(trace)
         n_nodes = explicit_n or trace.n_nodes
+        if seed is None:
+            seed = trace.seed
     else:
         tr = as_trace(trace)
         n_nodes = explicit_n or (params.n_nodes if params is not None else None)
         if n_nodes is None:
             raise ValueError("pass SimParams (or n_nodes=) when simulating "
                              "a raw trace")
+        if seed is None:
+            seed = 0
+    events: Sequence[ClusterEvent] = tuple(cluster_events)
+    if scenario is not None:
+        tr, events = apply_scenario_trace(scenario, tr, n_nodes, seed=seed)
     if params is None:
         params = SimParams(n_nodes=n_nodes, **param_overrides)
     else:
         params = replace(params, n_nodes=n_nodes, **param_overrides)
-    return Engine(tr, policy, params, cluster_events=cluster_events,
+    return Engine(tr, policy, params, cluster_events=events,
                   alloc_backend=backend).run()
 
 
@@ -163,6 +229,50 @@ def sweep(
     return res
 
 
+def serve(
+    host: str = "127.0.0.1",
+    port: int = 0,
+    *,
+    store: Optional[str] = None,
+    max_live: int = 256,
+    idle_evict_s: Optional[float] = None,
+    checkpoint_every: int = 0,
+    credit: Optional[CreditParams] = None,
+    announce=None,
+    device="cuda",
+    **credit_overrides: Any,
+) -> None:
+    """Run the multi-tenant session server (blocking), every session
+    allocating on ``device``.
+
+    JSONL-over-TCP, stdlib only, the JAX package's protocol.  ``store``
+    enables the durable layer: write-ahead op journals, snapshot-backed
+    eviction of idle sessions past ``max_live`` (and ``idle_evict_s``),
+    and crash recovery — a restarted server replays persisted snapshots +
+    journals and client retries dedupe on per-session seq, so a ``kill
+    -9`` mid-workload resumes bit-identically.  Tenant fairness comes
+    from the credit score ``clamp(1 − α·budget_used − β·violations −
+    γ·tail_latency)`` weighting a DRF fair queue; tune via
+    ``credit=CreditParams(...)`` or keyword overrides (``alpha=``,
+    ``budget=``, ``max_pending=``, …).  With no CUDA device, the default
+    ``device`` raises before a socket is bound.
+
+    Use :class:`ServerThread` for an in-process background server, and
+    :func:`connect` for a client.  ``announce(server)`` fires once the
+    socket is bound (``server.port`` is then known).
+    """
+    if credit is None:
+        credit = CreditParams(**credit_overrides)
+    elif credit_overrides:
+        raise ValueError("pass either credit= or keyword overrides, "
+                         "not both")
+    _run_server(ServeConfig(host=host, port=port, store=store,
+                            max_live=max_live, idle_evict_s=idle_evict_s,
+                            checkpoint_every=checkpoint_every,
+                            credit=credit, device=device),
+                announce=announce)
+
+
 def autotune(
     session: SimSession,
     config: Union[str, TuneConfig, None] = None,
@@ -186,3 +296,19 @@ def autotune(
     tuner = AutoTuner(config, seed=seed, log_path=log_path)
     session.attach_autotuner(tuner)
     return tuner
+
+
+def list_policies(include_paper_space: bool = False) -> Dict[str, Any]:
+    """The policy surface: Table-1 strings (canonicalized), registered
+    component compositions, the component registry, and the size of the
+    full §6.1 space (expanded with ``include_paper_space``)."""
+    out: Dict[str, Any] = {
+        "table1": [parse_policy(p).name for p in TABLE1_POLICIES],
+        "registered": registered_policies(),
+        "components": list_components(),
+        "n_paper_space": len(all_paper_policies()),
+    }
+    if include_paper_space:
+        out["paper_space"] = [parse_policy(p).name
+                              for p in all_paper_policies()]
+    return out

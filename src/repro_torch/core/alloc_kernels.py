@@ -18,10 +18,16 @@ sums use a sequential (left-to-right, column-ascending) CSR matvec — NOT
 ``np.sum``/``np.dot``, whose pairwise summation rounds differently.  Masked
 terms contribute an exact ``+ 0.0``, which never changes a finite
 non-negative partial sum.
+
+:func:`reference_kernels` flips the whole engine (yield_alloc, greedy,
+mcb8, stretch_opt and the engine's §4.6 reallocation, ahead of any
+``alloc_backend``) onto the oracle in
+:mod:`repro_torch.core.alloc_reference`.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import contextlib
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -31,12 +37,40 @@ __all__ = [
     "build_csr",
     "maxmin_yields_csr",
     "avg_yields_csr",
+    "reference_kernels",
+    "reference_kernels_active",
 ]
 
 _EPS = 1e-12
 
 _EMPTY_I = np.zeros(0, dtype=np.int64)
 _EMPTY_F = np.zeros(0, dtype=np.float64)
+
+# --------------------------------------------------------------------------- #
+# reference-mode switch                                                        #
+# --------------------------------------------------------------------------- #
+_REFERENCE = False
+
+
+def reference_kernels_active() -> bool:
+    """True while the engine is forced onto the pre-vectorization oracle."""
+    return _REFERENCE
+
+
+@contextlib.contextmanager
+def reference_kernels() -> Iterator[None]:
+    """Run everything under the :mod:`repro_torch.core.alloc_reference`
+    oracle: a simulation executed inside this context takes the original
+    dict/loop allocation paths end to end, whatever its ``alloc_backend``,
+    so its ``SimResult`` is the ground truth the host hot path and the
+    device path must match bit for bit."""
+    global _REFERENCE
+    prev = _REFERENCE
+    _REFERENCE = True
+    try:
+        yield
+    finally:
+        _REFERENCE = prev
 
 
 # --------------------------------------------------------------------------- #

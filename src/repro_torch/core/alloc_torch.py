@@ -30,7 +30,12 @@ on the host from bit-identical inputs.
 
 Device: the entry points take ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where the kernels run as their plain PyTorch versions.
-With no CUDA device, ``"cuda"`` raises; nothing falls back.
+With no CUDA device, ``"cuda"`` raises; nothing falls back.  Whatever
+fails in the device work of a request on the card (the copies to and
+from it, a kernel's build or launch, a CUDA error) reaches the caller as
+a :class:`~repro_torch.device.BackendFault`; a failure of the host work
+(densifying, padding, the HiGHS LP) and everything on the CPU pass as
+they are.
 
 On top sits the lockstep machinery ``sweep.run_batched`` drives: a
 :class:`TorchBatchedAllocator` turning N allocation requests into one
@@ -40,6 +45,7 @@ points until every live lane has a request in the batch.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import Counter
@@ -48,7 +54,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import BackendFault, resolve_device
 from ..kernels import ops
 from .alloc_kernels import CSRIncidence
 
@@ -58,6 +64,8 @@ __all__ = [
     "densify_csr",
     "pad_batch",
     "maxmin_yields_batch",
+    "node_usage",
+    "node_usage_batch",
     "TorchAllocBackend",
     "TorchBatchedAllocator",
     "LockstepDispatcher",
@@ -176,6 +184,27 @@ def maxmin_yields_batch(
     return host[: y.numel()].view(y.shape)
 
 
+# --------------------------------------------------------------------------- #
+# batched stretch scatter (§4.7 node-usage pass)                               #
+# --------------------------------------------------------------------------- #
+def node_usage_batch(nodes, vals, n_nodes: int, device="cuda") -> np.ndarray:
+    """Per-node usage over ``(B, K)`` scatter lists (padded with the
+    ``n_nodes`` sentinel), one dispatch on ``device``: per lane bit-equal
+    to the in-order ``np.add.at`` accumulation of the §4.7 stretch passes,
+    entries outside ``[0, n_nodes)`` dropped.  Returns ``(B, n_nodes)``."""
+    dev = resolve_device(device)
+    nodes_t = torch.as_tensor(np.asarray(nodes, dtype=np.int64)).to(dev)
+    vals_t = torch.as_tensor(np.asarray(vals, dtype=np.float64)).to(dev)
+    return ops.node_usage(nodes_t.contiguous(), vals_t.contiguous(),
+                          int(n_nodes)).cpu().numpy()
+
+
+def node_usage(nodes, vals, n_nodes: int, device="cuda") -> np.ndarray:
+    """:func:`node_usage_batch` of one ``(K,)`` list: ``(n_nodes,)``."""
+    return node_usage_batch(np.asarray(nodes)[None], np.asarray(vals)[None],
+                            n_nodes, device=device)[0]
+
+
 def _avg_lp(inc: CSRIncidence, cols: np.ndarray, y_min: float) -> np.ndarray:
     """The LP (2) solve of ``avg_yields_csr`` with the floor injected (the
     floor is the only device-computed input; from a bit-identical ``y_min``
@@ -198,6 +227,23 @@ def _avg_lp(inc: CSRIncidence, cols: np.ndarray, y_min: float) -> np.ndarray:
 # --------------------------------------------------------------------------- #
 # engine-pluggable backends                                                    #
 # --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def _device_work(device: torch.device):
+    """Around the copies and launches of a request: on the card, any
+    failure is the backend's (:class:`BackendFault`); on the CPU, errors
+    pass as they are."""
+    if device.type != "cuda":
+        yield
+        return
+    try:
+        yield
+    except BackendFault:
+        raise
+    except Exception as exc:
+        raise BackendFault(f"allocation backend on {device} failed: "
+                           f"{type(exc).__name__}: {exc}") from exc
+
+
 class TorchBatchedAllocator:
     """Serve many cells' allocation requests as single padded dispatches.
 
@@ -239,14 +285,13 @@ class TorchBatchedAllocator:
                 raise ValueError(f"unknown OPT {opt!r}")
             if not c.shape[0]:
                 out[i] = np.zeros(0)
-        if min_idx:
+        for idx, serve, key in ((min_idx, self._serve_min, "min_s"),
+                                (avg_idx, self._serve_avg, "avg_s")):
+            if not idx:
+                continue
             t0 = time.perf_counter()
-            self._serve_min(requests, min_idx, out)
-            self.stats["min_s"] += time.perf_counter() - t0
-        if avg_idx:
-            t0 = time.perf_counter()
-            self._serve_avg(requests, avg_idx, out)
-            self.stats["avg_s"] += time.perf_counter() - t0
+            serve(requests, idx, out)
+            self.stats[key] += time.perf_counter() - t0
         return out  # fully populated
 
     def _pad_compact(self, requests, idx):
@@ -266,17 +311,19 @@ class TorchBatchedAllocator:
             present[b], weight[b] = p, w
             active[b, : cols.shape[0]] = True
         dev = self.device
-        return (torch.from_numpy(present).to(dev),
-                torch.from_numpy(weight).to(dev),
-                torch.from_numpy(active).to(dev))
+        with _device_work(dev):
+            return (torch.from_numpy(present).to(dev),
+                    torch.from_numpy(weight).to(dev),
+                    torch.from_numpy(active).to(dev))
 
     def _serve_min(self, requests, idx, out):
         present, weight, active = self._pad_compact(requests, idx)
         self.stats["dispatches"] += 1
         self.stats["min_shapes"][tuple(weight.shape)] += 1
         # one host read: the yields with the round counts
-        y = maxmin_yields_batch(present, weight, active,
-                                stats=self.stats).numpy()
+        with _device_work(self.device):
+            y = maxmin_yields_batch(present, weight, active,
+                                    stats=self.stats).numpy()
         for b, i in enumerate(idx):
             m = requests[i][1].shape[0]
             out[i] = y[b, :m].copy()
@@ -286,9 +333,12 @@ class TorchBatchedAllocator:
         self.stats["dispatches"] += 1
         self.stats["avg_shapes"][tuple(weight.shape)] += 1
         B, _, W = weight.shape
-        ones = torch.ones((B, W), dtype=torch.float64, device=weight.device)
-        # Λ per lane: max over nodes of the sequential row load sums
-        lams = ops.alloc_matvec(weight, ones).max(dim=1).values.cpu().numpy()
+        with _device_work(self.device):
+            ones = torch.ones((B, W), dtype=torch.float64,
+                              device=weight.device)
+            # Λ per lane: max over nodes of the sequential row load sums
+            lams = ops.alloc_matvec(weight, ones).max(dim=1).values
+            lams = lams.cpu().numpy()
         self.stats["host_syncs"] += 1
         for b, i in enumerate(idx):
             inc, cols, _ = requests[i]

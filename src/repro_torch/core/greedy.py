@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import alloc_kernels, alloc_reference
 from .job import JobSpec, NodePool
 from .state import JobView
 
@@ -30,6 +31,8 @@ def greedy_place(pool: NodePool, spec: JobSpec) -> Optional[List[int]]:
     """Map each task of ``spec`` to the feasible node with the lowest CPU
     load (§4.2), updating ``pool`` in place.  Returns the mapping or None if
     some task cannot fit in memory (pool is then left unmodified)."""
+    if alloc_kernels.reference_kernels_active():
+        return alloc_reference.greedy_place(pool, spec)
     # one masked-load array per call; only the chosen node changes per task
     masked = pool.masked_loads(spec.mem_req)
     if masked.size == 0:

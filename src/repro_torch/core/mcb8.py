@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import alloc_kernels, alloc_reference
 
 __all__ = ["MCB8Result", "mcb8_pack", "mcb8"]
 
@@ -241,6 +242,11 @@ def _try_pack(
         pre[pj] = list(mapping)
     if (cpu_free < -_EPS).any() or (mem_free < -_EPS).any():
         return None
+    if alloc_kernels.reference_kernels_active():
+        jobs = list(zip(jid.tolist(), cpu.tolist(), mem.tolist(),
+                        ntask.tolist()))
+        return alloc_reference.pack_core(n_nodes, jobs, pre,
+                                         cpu_free, mem_free, {})
     return _pack_core(n_nodes, jid, cpu, mem, ntask, pre, cpu_free, mem_free)
 
 

@@ -23,9 +23,10 @@ policy (``repro_torch.sched.components.compose_from_spec``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
-__all__ = ["PolicySpec", "parse_policy", "render_policy"]
+__all__ = ["PolicySpec", "parse_policy", "render_policy", "TABLE1_POLICIES",
+           "all_paper_policies"]
 
 _SUBMIT = {"": None, "greedy": "greedy", "greedyp": "greedyP", "greedypm": "greedyPM", "mcb8": "mcb8"}
 
@@ -131,3 +132,38 @@ def parse_policy(name: str) -> PolicySpec:
         raise ValueError("OPT=MAX is only defined for /stretch-per")
     return PolicySpec.make(on_submit, opportunistic, periodic, opt,
                            minvt, minft)
+
+
+#: the 14 Table-1 combinations (with the paper's recommended parameters)
+TABLE1_POLICIES: List[str] = [
+    "Greedy *",
+    "GreedyP *",
+    "GreedyPM *",
+    "Greedy/per",
+    "GreedyP/per",
+    "GreedyPM/per",
+    "Greedy */per",
+    "GreedyP */per",
+    "GreedyPM */per",
+    "MCB8 *",
+    "MCB8/per",
+    "MCB8 */per",
+    "/per",
+    "/stretch-per",
+]
+
+
+def all_paper_policies() -> List[str]:
+    """The full 116-combination space of §6.1."""
+    out = []
+    for base in ["Greedy *", "GreedyP *", "GreedyPM *"]:
+        for opt in ("MIN", "AVG"):
+            out.append(f"{base}/OPT={opt}")
+    mcb_bases = TABLE1_POLICIES[3:]  # every combination that invokes MCB8
+    limits = ["", "/MINFT=300", "/MINFT=600", "/MINVT=300", "/MINVT=600"]
+    for base in mcb_bases:
+        opts = ("MAX", "AVG") if base == "/stretch-per" else ("MIN", "AVG")
+        for opt in opts:
+            for lim in limits:
+                out.append(f"{base}/OPT={opt}{lim}")
+    return out

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import alloc_kernels, alloc_reference
 from .mcb8 import _Candidates
 
 __all__ = ["StretchResult", "mcb8_stretch", "improve_max_stretch", "improve_avg_stretch"]
@@ -106,6 +107,9 @@ def improve_max_stretch(
     """OPT=MAX (§4.7): iteratively reduce the max estimated stretch using
     slack — raise the worst job's yield until slack, cap, or the next-worst
     stretch level is reached."""
+    if alloc_kernels.reference_kernels_active():
+        return alloc_reference.improve_max_stretch(
+            jobs, mappings, yields, n_nodes, now, period, max_rounds)
     jobs = [js for js in jobs if js.spec.jid in mappings]
     if not jobs:
         return yields
@@ -175,6 +179,9 @@ def improve_avg_stretch(
 ) -> Dict[int, float]:
     """OPT=AVG (§4.7): maximize Σ projected progress (linear proxy) with the
     achieved target as per-job floor."""
+    if alloc_kernels.reference_kernels_active():
+        return alloc_reference.improve_avg_stretch(
+            jobs, mappings, yields, n_nodes, now, period)
     from scipy.optimize import linprog
     from scipy.sparse import csr_matrix
 

@@ -1,4 +1,5 @@
-// Hopper kernels of the §4.6 OPT=MIN water-filling (batched, float64).
+// Hopper kernels of the §4.6 OPT=MIN water-filling (batched, float64), and
+// of the §4.7 stretch passes' per-node usage scatter.
 //
 // Both kernels are held bit for bit to the host numpy kernels
 // (repro_torch.core.alloc_kernels.maxmin_yields_csr) and to their plain
@@ -400,6 +401,52 @@ int launch_solve(const unsigned char* present, const double* weight,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The per-node usage scatter of the §4.7 stretch passes (node_usage_kernel).
+//
+// Replaces the JAX package's XLA segment_sum in core/alloc_jax.py
+// (node_usage / node_usage_batch, :317-348).  Contract: out[b, n] is the sum
+// of vals[b, k] over the k with nodes[b, k] == n, added in ascending k
+// starting from 0.0 — bit for bit an in-order np.add.at.  An entry naming
+// no node in [0, N) (the sentinel N marks padding) is dropped.  Atomics
+// (index_add_ / scatter_add_ on the card) would add in a run-dependent
+// order, so none are used: one block takes one lane and 128 nodes, one
+// thread one node, and every thread walks the lane's list in order and
+// adds the entries that name its node.  The list is staged through shared
+// memory a tile at a time, where all threads read the same entry (a
+// broadcast).  Bound: bytes (the lists read once, the usage written once);
+// at the stretch passes' sizes the walk of K entries a thread is the
+// latency that counts.
+constexpr int kUsageThreads = 128;
+constexpr int kUsageTile = 2048;
+
+__global__ void __launch_bounds__(kUsageThreads)
+node_usage_kernel(const long long* __restrict__ nodes,
+                  const double* __restrict__ vals, double* __restrict__ out,
+                  int K, int N) {
+  __shared__ int s_node[kUsageTile];
+  __shared__ double s_val[kUsageTile];
+  const long long lane = blockIdx.x;
+  const int node = blockIdx.y * kUsageThreads + threadIdx.x;
+  const long long* lane_nodes = nodes + lane * K;
+  const double* lane_vals = vals + lane * K;
+  double acc = 0.0;
+  for (int base = 0; base < K; base += kUsageTile) {
+    const int n = K - base < kUsageTile ? K - base : kUsageTile;
+    __syncthreads();                    // the previous tile is consumed
+    for (int i = threadIdx.x; i < n; i += kUsageThreads) {
+      const long long v = __ldg(lane_nodes + base + i);
+      s_node[i] = (v >= 0 && v < N) ? static_cast<int>(v) : -1;
+      s_val[i] = __ldg(lane_vals + base + i);
+    }
+    __syncthreads();
+    for (int i = 0; i < n; ++i) {
+      if (s_node[i] == node) acc = __dadd_rn(acc, s_val[i]);
+    }
+  }
+  if (node < N) out[lane * N + node] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -426,6 +473,19 @@ int repro_maxmin_solve_f64(const unsigned char* present, const double* weight,
                                    rounds_out, B, N, W, s)
               : launch_solve<false>(present, weight, active, y_out,
                                     rounds_out, B, N, W, s);
+}
+
+int repro_node_usage_f64(const long long* nodes, const double* vals,
+                         double* out, int B, int K, int N, void* stream) {
+  if (B > 0 && N > 0) {
+    const dim3 grid(static_cast<unsigned int>(B),
+                    static_cast<unsigned int>((N + kUsageThreads - 1)
+                                              / kUsageThreads));
+    node_usage_kernel<<<grid, kUsageThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(nodes, vals, out,
+                                                             K, N);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -42,6 +42,7 @@ LIBRARIES = {
               _COMMON[:3] + ("--fmad=false",) + _COMMON[3:], {
         "repro_alloc_matvec_f64": [_P, _P, _P, _I, _I, _I, _P],
         "repro_maxmin_solve_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "repro_node_usage_f64": [_P, _P, _P, _I, _I, _I, _P],
     }),
     "attention": (_CSRC / "attention.cu", _COMMON, {
         "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

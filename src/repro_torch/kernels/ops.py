@@ -22,16 +22,17 @@ from .alloc_matvec import alloc_matvec_cuda, alloc_matvec_plain
 from .flash_attention import (flash_attention_cuda, flash_attention_plain,
                               flash_decode_cuda, flash_decode_plain)
 from .maxmin_solve import maxmin_solve_cuda, maxmin_solve_plain, solve_route
+from .node_usage import node_usage_cuda, node_usage_plain
 from .rglru_scan import linear_recurrence_plain, rglru_route, rglru_scan_cuda
 from .rwkv6_scan import wkv6_cuda, wkv6_plain, wkv6_route
 
-__all__ = ["alloc_matvec", "maxmin_solve", "flash_attention", "flash_decode",
-           "linear_recurrence", "wkv6", "launches", "routes",
+__all__ = ["alloc_matvec", "maxmin_solve", "node_usage", "flash_attention",
+           "flash_decode", "linear_recurrence", "wkv6", "launches", "routes",
            "reset_launches"]
 
 #: kernel launches per entry point since the last reset
 launches: Dict[str, int] = {"alloc_matvec": 0, "maxmin_solve": 0,
-                            "flash_attention": 0, "flash_decode": 0,
+                            "node_usage": 0, "flash_attention": 0, "flash_decode": 0,
                             "rglru_scan": 0, "wkv6": 0}
 #: launches by the instance taken, since the last reset
 routes: Dict[str, Counter] = {"maxmin_solve": Counter(),
@@ -74,6 +75,18 @@ def maxmin_solve(present: torch.Tensor, weight: torch.Tensor,
         routes["maxmin_solve"][solve_route(present, weight, active)] += 1
         return out
     return maxmin_solve_plain(present, weight, active)
+
+
+def node_usage(nodes: torch.Tensor, vals: torch.Tensor,
+               n_nodes: int) -> torch.Tensor:
+    """Per-node sums of every lane's ``(node, value)`` list in list order,
+    bit-equal to an in-order ``np.add.at`` (see
+    ``kernels/node_usage.py``)."""
+    if _on_cuda(vals):
+        out = node_usage_cuda(nodes, vals, n_nodes)
+        launches["node_usage"] += 1
+        return out
+    return node_usage_plain(nodes, vals, n_nodes)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

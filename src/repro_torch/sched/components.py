@@ -47,6 +47,7 @@ __all__ = [
     "COMPONENT_KINDS",
     "register_component",
     "get_component",
+    "list_components",
     "compose",
     "compose_from_spec",
     "register_policy",
@@ -138,6 +139,12 @@ def get_component(kind: str, name: str) -> type:
     except KeyError:
         known = sorted(n for k, n in _COMPONENTS if k == kind)
         raise KeyError(f"unknown {kind} component {name!r}; known: {known}")
+
+
+def list_components(kind: Optional[str] = None) -> Dict[str, List[str]]:
+    """``{kind: [names...]}`` for one kind or all of them."""
+    kinds = (kind,) if kind else COMPONENT_KINDS
+    return {k: sorted(n for kk, n in _COMPONENTS if kk == k) for k in kinds}
 
 
 # --------------------------------------------------------------------------- #
@@ -249,16 +256,18 @@ def compose_from_spec(spec: PolicySpec | str) -> ComposedPolicy:
 # --------------------------------------------------------------------------- #
 # named whole-policy registry (compositions beyond the grammar)                #
 # --------------------------------------------------------------------------- #
-_POLICIES: Dict[str, Callable[[], Policy]] = {}
+_POLICIES: Dict[str, Tuple[Callable[[], Policy], str]] = {}
 
 
-def register_policy(name: str):
-    """Decorator: register a factory of a named policy composition the
-    string grammar cannot spell.
+def register_policy(name: str, factory: Optional[Callable[[], Policy]] = None,
+                    *, description: str = ""):
+    """Register a factory of a named policy composition the string grammar
+    cannot spell (``register_policy(name, factory)``, or as a decorator).
 
     The factory must build a *fresh* policy instance per call (policies are
     stateful).  The name then works everywhere a policy string does.  Names
-    that parse under the grammar are rejected.
+    that parse under the grammar are rejected.  ``description`` (default:
+    the factory's docstring) is what :func:`registered_policies` lists.
     """
     def _register(fac: Callable[[], Policy]):
         try:
@@ -271,22 +280,23 @@ def register_policy(name: str):
                 f"must not shadow the grammar")
         if name in _POLICIES:
             raise ValueError(f"policy {name!r} already registered")
-        _POLICIES[name] = fac
+        _POLICIES[name] = (fac, description or (fac.__doc__ or "").strip())
         return fac
 
-    return _register
+    if factory is None:
+        return _register           # decorator form
+    return _register(factory)
 
 
 def registered_policies() -> Dict[str, str]:
     """``{name: description}`` of every registered composition."""
-    return {name: (fac.__doc__ or "").strip()
-            for name, fac in sorted(_POLICIES.items())}
+    return {name: desc for name, (_, desc) in sorted(_POLICIES.items())}
 
 
 def resolve_policy(name: str) -> Optional[Policy]:
     """A fresh policy instance for a registered name, else None."""
-    fac = _POLICIES.get(name)
-    return fac() if fac is not None else None
+    entry = _POLICIES.get(name)
+    return entry[0]() if entry is not None else None
 
 
 # --------------------------------------------------------------------------- #
@@ -740,11 +750,11 @@ class PeriodicBackfill(BatchStartPass):
 # --------------------------------------------------------------------------- #
 # built-in named compositions                                                  #
 # --------------------------------------------------------------------------- #
-@register_policy("EASY+OPT=MIN")
+@register_policy("EASY+OPT=MIN", description=(
+    "EASY backfilling whose backfill step may fractionally co-locate jobs "
+    "on occupied nodes, with an OPT=MIN water-filling post-pass arbitrating "
+    "the sharing (hybrid batch+DFRS; not expressible in the §4.5 grammar)"))
 def _easy_opt_min() -> ComposedPolicy:
-    """EASY backfilling whose backfill step may fractionally co-locate jobs
-    on occupied nodes, with an OPT=MIN water-filling post-pass arbitrating
-    the sharing (hybrid batch+DFRS; not expressible in the §4.5 grammar)."""
     return compose(
         "EASY+OPT=MIN",
         QueueSubmit(),

@@ -15,7 +15,9 @@ tally.
 The §4.6 reallocation (:func:`_reallocate_yields`) runs on the host numpy
 kernels, or on any ``alloc_backend`` with the same ``allocate`` protocol —
 the device path is ``repro_torch.core.alloc_torch.TorchAllocBackend`` or a
-lockstep lane of a batched sweep.
+lockstep lane of a batched sweep.  Under
+:func:`~repro_torch.core.alloc_kernels.reference_kernels` it runs the
+pure-Python oracle instead, ahead of any backend.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ from ..core.state import (
     EngineState,
     JobView,
 )
-from ..core.yield_alloc import allocate_incidence
+from ..core import alloc_kernels
+from ..core.yield_alloc import allocate, allocate_incidence
 from ..workloads.trace import Trace
 from .cluster import ClusterEvent
 
@@ -150,7 +153,12 @@ def _reallocate_yields(e: "Engine", opt: str) -> None:
     ``opt`` policy components)."""
     st = e.state
     run = st.running_indices()
-    if e.alloc_backend is not None:
+    if alloc_kernels.reference_kernels_active():
+        views = [st.views[i] for i in run]
+        ylds = allocate([js.spec for js in views],
+                        [js.mapping for js in views],
+                        e.params.n_nodes, opt=opt)
+    elif e.alloc_backend is not None:
         # pluggable backend (bit-identical contract): the torch allocator,
         # or a lockstep lane of a batched sweep
         ylds = e.alloc_backend.allocate(st.inc.csr(), run, opt)

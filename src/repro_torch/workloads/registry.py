@@ -41,6 +41,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 
+from ..core.job import JobSpec
 from .hpc2n import (hpc2n_like_trace, hpc2n_preprocess, iter_swf_windows,
                     parse_swf)
 from .lublin import lublin_trace, scale_to_load
@@ -48,7 +49,8 @@ from .trace import Trace
 
 __all__ = [
     "WorkloadSpec", "WorkloadKind", "register_workload", "list_workloads",
-    "workload_kind", "parse_workload", "make_trace_ir", "stream_trace",
+    "workload_kind", "parse_workload", "make_trace", "make_trace_ir",
+    "stream_trace",
     "DEFAULT_STREAM_WINDOW_S",
 ]
 
@@ -203,6 +205,11 @@ def make_trace_ir(spec: WorkloadSpec) -> Trace:
     return workload_kind(spec.kind).fn(spec)
 
 
+def make_trace(spec: WorkloadSpec) -> List[JobSpec]:
+    """Materialize the trace for ``spec`` as a fresh ``JobSpec`` list."""
+    return make_trace_ir(spec).to_specs()
+
+
 # --------------------------------------------------------------------------- #
 # built-in kinds                                                               #
 # --------------------------------------------------------------------------- #
@@ -290,7 +297,7 @@ def _swf_stream(spec: WorkloadSpec) -> Trace:
 
 @register_workload(
     "tpu", supports_load=True, params=("records", "chips_per_task"),
-    doc="accelerator-pod job mix from roofline job types (workloads.jobgen); "
+    doc="TPU-pod job mix from roofline job types (workloads.jobgen); "
         "load= is the target offered load (default 0.6), "
         "params[records]= derives types from a dry-run artifact")
 def _tpu(spec: WorkloadSpec) -> Trace:

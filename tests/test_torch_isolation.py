@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax nor the JAX package (nor
 do ``chip_smoke.py``, ``ab_alloc.py`` and ``ab_prefill.py``), and its
-device entry points (the sweeps, ``api.sweep`` and the tuner's races
-included) run on the card unless told otherwise."""
+device entry points (the sweeps, ``api.sweep``, the tuner's races, the
+session server, the CLI and the legacy wrappers included) run on the card
+unless told otherwise."""
 import json
 import os
 import pathlib
@@ -68,9 +69,28 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
                 "workloads.registry", "sched.components", "sched.session",
                 "sched.sweep", "core.ioutil", "api", "workloads.jobgen",
                 "sched.scenarios", "sched.narrator", "sched.cluster",
-                "tune", "tune.score", "tune.race", "tune.controller"):
+                "tune", "tune.score", "tune.race", "tune.controller",
+                "serve", "serve.protocol", "serve.admission",
+                "serve.registry", "serve.server", "serve.client",
+                "__main__", "sched._compat", "sched.simulator",
+                "sched.batch", "core.equipartition", "core.alloc_reference",
+                "kernels.node_usage"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert out["bad"] == []
+
+
+def test_the_client_imports_no_torch():
+    """``repro_torch.serve.client`` (and the ``client`` subcommand) is a
+    plain socket program."""
+    probe = ("import sys; from repro_torch.serve.client import Client; "
+             "import repro_torch.__main__; "
+             "print(any(m == 'torch' or m.startswith('torch.') "
+             "for m in sys.modules))")
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "False"
 
 
 def _need_no_cuda():
@@ -193,3 +213,62 @@ def test_cpu_device_is_explicit():
     r = api.simulate(api.WorkloadSpec("lublin", n_jobs=10, n_nodes=4, seed=0),
                      "GreedyP */OPT=MIN", device="cpu")
     assert np.isfinite(r.max_stretch) and r.max_stretch >= 1.0
+
+
+def test_the_server_defaults_to_cuda_and_raises_before_binding():
+    _need_no_cuda()
+    import asyncio
+
+    from repro_torch.device import BackendFault
+    from repro_torch.serve import SchedServer, ServeConfig, ServerThread
+
+    assert ServeConfig().device == "cuda"
+    server = SchedServer(ServeConfig())
+    with pytest.raises(BackendFault, match="CUDA"):
+        asyncio.run(server.start())
+    assert server.port is None and server._server is None
+    thread = ServerThread(ServeConfig())
+    with pytest.raises(RuntimeError, match="failed to start"):
+        thread.start()
+    assert thread.port is None and isinstance(thread.error, BackendFault)
+    announced = []
+    with pytest.raises(BackendFault, match="CUDA"):
+        api.serve(announce=announced.append)
+    assert announced == []
+
+
+def test_the_cli_defaults_to_cuda_and_exits_non_zero_without_it(tmp_path):
+    _need_no_cuda()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for argv in (["simulate", "--policy", "GreedyP */OPT=MIN", "--jobs",
+                  "10", "--nodes", "4"],
+                 ["serve", "--port-file", str(tmp_path / "port")]):
+        proc = subprocess.run([sys.executable, "-m", "repro_torch", *argv],
+                              capture_output=True, text=True, timeout=120,
+                              env=env)
+        assert proc.returncode != 0 and "CUDA" in proc.stderr
+        assert not proc.stdout.strip()
+    assert not (tmp_path / "port").exists()     # the server never listened
+
+
+def test_legacy_wrappers_default_to_cuda_and_raise_without_it():
+    _need_no_cuda()
+    import warnings
+
+    from repro_torch.sched import DFRSSimulator, batch_schedule, simulate
+    from repro_torch.sched.engine import SimParams
+    from repro_torch.workloads.registry import WorkloadSpec, make_trace
+
+    specs = make_trace(WorkloadSpec("lublin", n_jobs=10, n_nodes=4, seed=0))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for policy in ("GreedyP */OPT=MIN", "FCFS"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                simulate(specs, policy, SimParams(n_nodes=4))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DFRSSimulator(specs, "GreedyP */OPT=MIN", SimParams(n_nodes=4))
+        for algo in ("FCFS", "EASY"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                batch_schedule(specs, algo, SimParams(n_nodes=4))
+        assert batch_schedule(specs, "EASY", SimParams(n_nodes=4),
+                              device="cpu").max_stretch >= 1.0
