@@ -122,7 +122,8 @@ fails ends the run with exit code 1:
                RWKV6 WKV recurrence against their plain versions on the
                card, fp32 and bf16, at RecurrentGemma-2B's shapes (a prompt
                of 2,100 tokens under the 2,048 window), without a window,
-               non-causal, at Llama-3-8B's GQA widths, per-request decode
+               non-causal, at Llama-3-8B's GQA widths and SmolLM-360M's
+               group of 3 at head dim 64, per-request decode
                lengths past the cache, T = 1 and a long T; bf16 cases
                that reach every attention instance and edge (hd 32 to
                256, hdv != hd, a prompt shorter than a key tile, GQA with
@@ -140,22 +141,32 @@ fails ends the run with exit code 1:
                1e-5 / rtol 1e-4, the WKV atol = rtol = 1e-4: the
                reference's kernel tolerances);
 6. model check — per arch at full width, cut in depth, fp32, seeded
-               weights drawn on the host: RecurrentGemma-2B one super-block
-               deep (RG-LRU, RG-LRU, local attention), prefill of 2,100
-               tokens; RWKV6-7B 2 layers deep, prefill of 1,000 tokens;
-               then 8 decode steps, on the card (kernels) and on the host
-               CPU (plain versions), logits compared (atol = rtol = 2e-3)
-               and greedy tokens counted;
+               weights drawn on the card and copied to the host:
+               RecurrentGemma-2B one super-block deep (RG-LRU, RG-LRU,
+               local attention), prefill of 2,100 tokens; RWKV6-7B 2
+               layers deep, prefill of 1,000 tokens; the dense decoders
+               2 layers deep, prefill of 512 tokens: Llama-3-8B (once with
+               an fp32 cache, once with the int8 KV layout on both sides),
+               Qwen3-8B (qk_norm), SmolLM-360M (15 query heads over 5, head
+               dim 64, tied embeddings) and Granite-3-2B (tied embeddings,
+               a 49,155 vocabulary); then 8 decode steps, on the card
+               (kernels) and on the host CPU (plain versions), logits
+               compared (atol = rtol = 2e-3) and greedy tokens counted;
 7. serve     — per arch at full width and depth (bf16 weights and cache)
                through ``BatchedServer``, 4 slots, cache 4096, 8 requests
                of 1,024-2,000 prompt tokens: RecurrentGemma-2B (26 layers)
                with 96 new tokens each, so that decode wraps the 2,048
-               ring; RWKV6-7B (32 layers) with 64; every request must
-               finish with finite logits, and the launch counts, zeroed
-               just before and read just after, must show every kernel of
-               the arch, with every prefill launch of the RG-LRU scan and
-               of the WKV recurrence on the chunked route and every decode
-               launch on the sequential one; then the serve's last wave
+               ring; RWKV6-7B (32 layers) with 64; Llama-3-8B (32 layers,
+               32 query heads over 8, head dim 128) with 64; every request
+               must finish with finite logits, and the launch counts and
+               instances, zeroed just before and read just after, must
+               show every kernel of the arch, each launch on its instance:
+               prefill attention on ``attn_wgmma_kernel<NVP>`` (NVP 4 for
+               RecurrentGemma-2B's head dim 256, 2 for Llama-3-8B's 128),
+               decode attention on ``decode_mma_kernel<TQ, 1>``, every
+               prefill launch of the RG-LRU scan and of the WKV recurrence
+               on the chunked route and every decode launch on the
+               sequential one; then the serve's last wave
                (its last 4 requests,
                the served prompts) is replayed on a fresh server under
                ``torch.profiler`` for the card's busy share and kernel time
@@ -173,7 +184,10 @@ fails ends the run with exit code 1:
                larger, counting what these inputs need); the attention
                entries also name the instance that ran (its route, the
                ptxas registers and spills of its functions) and split
-               their device time by kernel name; the RG-LRU scan and the
+               their device time by kernel name, at RecurrentGemma-2B's
+               served shapes and, under ``llama3_8b``, at Llama-3-8B's
+               (its launches and instances beside them); the RG-LRU scan
+               and the
                WKV recurrence have an entry per route (decode on the
                sequential route, the median served prompt on the chunked
                one, with the sequential route's time at that shape
@@ -1955,22 +1969,48 @@ def phase_slice_serve(torch, np, seed0):
 
 
 # --------------------------------------------------------------------------- #
-# the serving path (RecurrentGemma-2B, RWKV6-7B)                               #
+# the serving path (RecurrentGemma-2B, RWKV6-7B, the dense decoders)           #
 # --------------------------------------------------------------------------- #
-RG, RWKV = "recurrentgemma-2b", "rwkv6-7b"
-# per arch: the kernels its path launches, the model check's depth, prompt
-# and weight seed, the serve's new tokens a request and its seed
+RG, RWKV, LLAMA = "recurrentgemma-2b", "rwkv6-7b", "llama3-8b"
+# the instance each kernel must take in a served prefill and decode
+# (ops.routes): bf16 attention on the tensor cores, attn_wgmma_kernel<NVP>
+# with NVP = hdv / 64 and decode_mma_kernel<TQ, 1> for groups up to 16; the
+# recurrences chunked in prefill, sequential in decode
+_RECURRENT_ROUTES = {"prefill": "chunked", "decode": "sequential"}
+# per arch: the kernels its path launches and their instances, the model
+# check's depth, prompt and weight seed (and its cache types), the serve's
+# new tokens a request and its seed
 SERVE_ARCHS = {
     RG: {"kernels": ("flash_attention", "flash_decode", "rglru_scan"),
+         "routes": {"flash_attention": {"prefill": "wgmma<4>"},
+                    "flash_decode": {"decode": "mma<1>"},
+                    "rglru_scan": _RECURRENT_ROUTES},
          "check_layers": 3, "check_prompt": 2100, "check_seed": 2402,
          # three of seed 60's eight prompts decode past the 2,048 window
          "max_new": 96, "seed": 60},
-    RWKV: {"kernels": ("wkv6",),
+    RWKV: {"kernels": ("wkv6",), "routes": {"wkv6": _RECURRENT_ROUTES},
            "check_layers": 2, "check_prompt": 1000, "check_seed": 2404,
            "max_new": 64, "seed": 64},
+    # full causal GQA (32 query heads over 8, head dim 128) over a cache
+    # that is not a ring; its model check runs again on an int8 cache
+    LLAMA: {"kernels": ("flash_attention", "flash_decode"),
+            "routes": {"flash_attention": {"prefill": "wgmma<2>"},
+                       "flash_decode": {"decode": "mma<1>"}},
+            "check_layers": 2, "check_prompt": 512, "check_seed": 2407,
+            "check_caches": ("float32", "int8"),
+            "max_new": 64, "seed": 80},
 }
-# the block kind of each recurrence's layers (models/config.py)
-_KIND = {"rglru_scan": "rglru", "wkv6": "rwkv6"}
+# the other dense decoders: model checks only (full width, 2 layers), for
+# qk_norm (Qwen3-8B), a group of 3 at head dim 64 (SmolLM-360M) and tied
+# embeddings over a 49,155 vocabulary (Granite-3-2B)
+_DENSE_CHECK = {"kernels": ("flash_attention", "flash_decode"),
+                "check_layers": 2, "check_prompt": 512}
+CHECK_ARCHS = {"qwen3-8b": dict(_DENSE_CHECK, check_seed=2505),
+               "smollm-360m": dict(_DENSE_CHECK, check_seed=2406),
+               "granite-3-2b": dict(_DENSE_CHECK, check_seed=2410)}
+# the block kinds of the layers that call each kernel (models/config.py)
+_KINDS = {"flash_attention": ("attn", "local"), "flash_decode": ("attn", "local"),
+          "rglru_scan": ("rglru",), "wkv6": ("rwkv6",)}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # the reference's kernel tests
 RGLRU_ATOL, RGLRU_RTOL = 1e-5, 1e-4
 WKV_TOL = 1e-4                                 # atol = rtol
@@ -2127,7 +2167,9 @@ def phase_serve_kernels(torch):
             ("window_q_offset", 1, 200, 900, 10, 1, 256, 256, True, 256,
              700),
             ("non_causal_short_keys", 2, 200, 50, 4, 1, 128, 128, False, 0,
-             0)]:
+             0),
+            # SmolLM-360M: a group of 3 at head dim 64 (attn_wgmma_kernel<1>)
+            ("smollm_360m_g3", 4, 2048, 2048, 15, 5, 64, 64, True, 0, 0)]:
         checks.append(prefill_check(torch, gen, bf, case))
     # decode: lengths 0, S - 1, S and past S; groups of 1, 4, 10, 32 and
     # 64 heads (one, two and four 16-row tiles); an fp32 q on a bf16 cache
@@ -2144,7 +2186,10 @@ def phase_serve_kernels(torch):
              [100, 299]),
             ("hd72", 2, 100, 6, 2, 72, 72, bf, [50, 99]),
             ("one_split", 64, 256, 32, 8, 128, 128, bf,
-             list(range(0, 640, 10)))]:
+             list(range(0, 640, 10))),
+            # SmolLM-360M: a group of 3 at head dim 64 on the mma route
+            ("smollm_360m_g3", 4, 2048, 15, 5, 64, 64, bf,
+             [0, 1000, 2047, 3000])]:
         checks.append(decode_check(torch, gen, bf, case))
     # (B, T, W, route: None for the one rglru_route picks)
     rt = rglru.CHUNKED_MIN_T
@@ -2232,31 +2277,38 @@ def phase_serve_kernels(torch):
                           "or a route of a recurrence went unchecked")
 
 
-def phase_model_check(torch, np, arch):
+def phase_model_check(torch, np, arch, spec):
+    """``arch`` at full width, cut to ``spec["check_layers"]``, fp32
+    weights drawn on the card from the check's seed and copied to the host:
+    a prefill of ``check_prompt`` tokens and CHECK_STEPS decode steps on the
+    card (kernels) and on the host CPU (plain versions), the host's greedy
+    picks fed to both, logits compared; once a cache type of
+    ``check_caches`` (an int8 cache: the quantized KV layout on both
+    sides), one line each."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import backbone
 
-    spec = SERVE_ARCHS[arch]
     cfg = dataclasses.replace(get_config(arch), n_layers=spec["check_layers"])
     n_prompt = spec["check_prompt"]
-    gen = torch.Generator()                     # weights drawn on the host
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(spec["check_seed"])
     t0 = time.perf_counter()
-    host = backbone.init_params(cfg, gen, dtype=torch.float32, device="cpu")
-    card = _tree_map(lambda t: t.to("cuda"), host)
+    card = backbone.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    host = _tree_map(lambda t: t.cpu(), card)
     init_s = time.perf_counter() - t0
     prompt = torch.as_tensor(np.random.default_rng(spec["check_seed"])
                              .integers(1, cfg.vocab, size=(1, n_prompt)))
+    cache_types = {"float32": torch.float32, "int8": torch.int8}
 
-    def run(params, device, feed=None):
+    def run(params, device, cache_dtype, feed=None):
         """Prefill, then decode the tokens of ``feed`` (when None, the run's
         own greedy picks).  Returns the logits of every step on the host,
         the tokens fed and the seconds taken."""
-        caches = backbone.init_cache(cfg, 1, CHECK_CACHE,
-                                     dtype=torch.float32, device=device)
+        caches = backbone.init_cache(cfg, 1, CHECK_CACHE, dtype=cache_dtype,
+                                     device=device)
         t = time.perf_counter()
         logits, caches = backbone.prefill(
             cfg, params, {"tokens": prompt.to(device)}, caches)
@@ -2269,32 +2321,40 @@ def phase_model_check(torch, np, arch):
             out.append(logits.float().cpu())
         return out, fed, time.perf_counter() - t
 
-    host_logits, feed, host_s = run(host, "cpu")
-    ops.reset_launches()
-    card_logits, _, card_s = run(card, "cuda", feed)
-    launches = {k: ops.launches[k] for k in spec["kernels"]}
-    routes = {k: dict(ops.routes[k]) for k in spec["kernels"]
-              if k in ops.routes}
-    diffs = [float((c - h).abs().max())
-             for c, h in zip(card_logits, host_logits)]
-    within = all(bool(((c - h).abs() <= MODEL_TOL + MODEL_TOL * h.abs()).all())
-                 for c, h in zip(card_logits, host_logits))
-    agree = sum(int(torch.argmax(c)) == int(torch.argmax(h))
-                for c, h in zip(card_logits, host_logits))
-    finite = all(bool(torch.isfinite(c).all()) for c in card_logits)
-    ok = within and finite and all(v > 0 for v in launches.values())
-    emit({"phase": "model check", "ok": ok, "arch": arch,
-          "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": "float32",
-          "prompt": n_prompt, "decode_steps": CHECK_STEPS,
-          "cache_len": CHECK_CACHE, "window": cfg.window,
-          "tolerance": {"atol": MODEL_TOL, "rtol": MODEL_TOL},
-          "max_abs_logit_diff": diffs, "greedy_agree": agree,
-          "greedy_total": len(card_logits), "launches": launches,
-          "routes": routes,
-          "init_s": init_s, "host_s": host_s, "card_s": card_s})
-    if not ok:
-        raise PhaseFailed("the card's logits disagree with the host's")
+    for cache_name in spec.get("check_caches", ("float32",)):
+        cache_dtype = cache_types[cache_name]
+        host_logits, feed, host_s = run(host, "cpu", cache_dtype)
+        ops.reset_launches()
+        card_logits, _, card_s = run(card, "cuda", cache_dtype, feed)
+        launches = {k: ops.launches[k] for k in spec["kernels"]}
+        routes = {k: dict(ops.routes[k]) for k in spec["kernels"]}
+        diffs = [float((c - h).abs().max())
+                 for c, h in zip(card_logits, host_logits)]
+        within = all(bool(((c - h).abs() <= MODEL_TOL + MODEL_TOL
+                           * h.abs()).all())
+                     for c, h in zip(card_logits, host_logits))
+        agree = sum(int(torch.argmax(c)) == int(torch.argmax(h))
+                    for c, h in zip(card_logits, host_logits))
+        finite = all(bool(torch.isfinite(c).all()) for c in card_logits)
+        ok = within and finite and all(v > 0 for v in launches.values())
+        emit({"phase": "model check", "ok": ok, "arch": arch,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+              "vocab": cfg.vocab, "qk_norm": cfg.qk_norm,
+              "tie_embeddings": cfg.tie_embeddings, "dtype": "float32",
+              "cache_dtype": cache_name, "prompt": n_prompt,
+              "decode_steps": CHECK_STEPS, "cache_len": CHECK_CACHE,
+              "window": cfg.window,
+              "tolerance": {"atol": MODEL_TOL, "rtol": MODEL_TOL},
+              "max_abs_logit_diff": diffs, "greedy_agree": agree,
+              "greedy_total": len(card_logits), "launches": launches,
+              "routes": routes,
+              "init_s": init_s, "host_s": host_s, "card_s": card_s})
+        if not ok:
+            raise PhaseFailed(f"the card's logits disagree with the host's "
+                              f"({arch}, {cache_name} cache)")
     del host, card
+    torch.cuda.empty_cache()
 
 
 def _tree_map(fn, tree):
@@ -2381,16 +2441,17 @@ def phase_serve(torch, np, arch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: ops.launches[k] for k in spec["kernels"]}
-    # a recurrence runs once a layer of its kind a call: every prefill on
-    # the chunked route, every decode step on the sequential one
-    routes = {k: dict(ops.routes[k]) for k in spec["kernels"]
-              if k in ops.routes}
-    per_call = {k: sum(b.kind == _KIND[k] for b in layer_plan(cfg))
-                for k in routes}
-    routes_ok = all(
-        routes[k] == {"chunked": srv.prefills * per_call[k],
-                      "sequential": srv.decode_steps * per_call[k]}
-        for k in routes)
+    # a kernel runs once a layer of its kinds a call: every prefill on the
+    # instance spec["routes"] names for prefill, every decode step on the
+    # one it names for decode
+    routes = {k: dict(ops.routes[k]) for k in spec["kernels"]}
+    per_call = {k: sum(b.kind in _KINDS[k] for b in layer_plan(cfg))
+                for k in spec["kernels"]}
+    calls = {"prefill": srv.prefills, "decode": srv.decode_steps}
+    expected = {k: {name: calls[when] * per_call[k]
+                    for when, name in spec["routes"][k].items()}
+                for k in spec["kernels"]}
+    routes_ok = routes == expected
     peak = torch.cuda.max_memory_allocated()
     last_pos = [len(r.prompt) + len(r.out) - 2 for r in reqs]
     # the ring must wrap where the arch has a window
@@ -2445,15 +2506,15 @@ def phase_serve(torch, np, arch):
           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
           "init_s": init_s, "weight_bytes": weight_bytes,
           "max_memory_allocated_bytes": peak, "launches": launches,
-          "routes": routes, "prefills": srv.prefills,
-          "layers_per_call": per_call,
+          "routes": routes, "expected_routes": expected,
+          "prefills": srv.prefills, "layers_per_call": per_call,
           "first_outputs": [r.out[:8] for r in reqs[:2]],
           "traced_window": trace})
     if not ok:
         raise PhaseFailed("a request did not finish, a logit was not "
                           "finite, no request wrapped the window, a "
                           f"kernel of {arch} was not launched, or a "
-                          "recurrence ran a call on the wrong route")
+                          "kernel ran a call on the wrong instance")
     del srv, params
     torch.cuda.empty_cache()
     return launches, lens, routes
@@ -2480,27 +2541,25 @@ def attention_instances(functions, route, q, v_or_cache, G, decode,
     return {"route": route, "functions": found}
 
 
-def serve_kernel_entries(torch, np, launches, prompt_lens, routes,
-                         functions, hgmma, rglru_functions):
-    """The kernels line's entries of RecurrentGemma-2B's kernels, each at
-    the shape its path used (bf16, as served): the median prompt for
-    prefill attention, the four slots at mid-run positions for decode, and
-    the RG-LRU scan per route (:func:`recurrence_entries`)."""
+def attention_fields(torch, np, arch, launches, prompt_lens, functions,
+                     hgmma, gen):
+    """flash attention and flash decode at the shapes ``arch``'s serve gave
+    them (bf16, as served), inputs drawn from ``gen``: one prefill of the
+    median served prompt under the arch's window, if any, and one decode
+    step of the four slots at mid-run positions (the first four prompts
+    plus half the new tokens) over a layer's cache (the window, or
+    SERVE_CACHE slots).  Each against its plain version and SDPA, timed
+    with both, beside its bound.  Returns the fields of the two entries."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (
         attention_route, decode_route, flash_attention_cuda,
         flash_attention_plain, flash_decode_cuda, flash_decode_plain)
-    from repro_torch.kernels import rglru_scan as rglru
 
-    cfg = get_config(RG)
-    H, Hkv, hd, W, win = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                          cfg.lru_width, cfg.window)
+    cfg = get_config(arch)
+    H, Hkv, hd, win = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
     bf = torch.bfloat16
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(11)
-    entries = []
 
     # ---- flash attention: one prefill of the median prompt ----------------
     L = int(np.median(prompt_lens))
@@ -2509,23 +2568,25 @@ def serve_kernel_entries(torch, np, launches, prompt_lens, routes,
     v = _randn(torch, gen, (1, L, Hkv, hd), bf)
     got = flash_attention_cuda(q, k, v, causal=True, window=win)
     want = flash_attention_plain(q, k, v, causal=True, window=win)
-    pos = torch.arange(L, device="cuda")
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if win:
+        pos = torch.arange(L, device="cuda")
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - win))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              enable_gqa=True)
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+    else:
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
     lib_out = sdpa().transpose(1, 2)
     pairs = attention_pairs(L, L, True, win)
     n_bytes = 2 * (2 * L * H * hd + 2 * L * Hkv * hd)
     n_ops = 4 * hd * H * pairs
     fa_bound, fa_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
-    entries.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/attention.cu",
-        "wrapper": "src/repro_torch/kernels/flash_attention.py",
-        "replaces": "src/repro/kernels/flash_attention.py:78",
+    prefill = {
         "launches": launches["flash_attention"],
         "instance": attention_instances(functions, attention_route(q, k, v),
                                         q, v, H // Hkv, decode=False,
@@ -2548,12 +2609,12 @@ def serve_kernel_entries(torch, np, launches, prompt_lens, routes,
         "bound_rate": "bf16 tensor cores 989 TFLOP/s; HBM 3.35 TB/s",
         "bound_ms_fp32_cuda_cores": bound_ms(n_bytes, n_ops,
                                              FP32_OPS_PER_S)[0],
-    })
+    }
 
     # ---- flash decode: the four slots at mid-run positions ----------------
-    S = min(SERVE_CACHE, win)
+    S = min(SERVE_CACHE, win) if win else SERVE_CACHE
     B = SERVE_SLOTS
-    lens_list = [int(n) + SERVE_ARCHS[RG]["max_new"] // 2
+    lens_list = [int(n) + SERVE_ARCHS[arch]["max_new"] // 2
                  for n in prompt_lens[:B]]
     lens = torch.tensor(lens_list, device="cuda")
     q = _randn(torch, gen, (B, H, hd), bf)
@@ -2570,14 +2631,11 @@ def serve_kernel_entries(torch, np, launches, prompt_lens, routes,
         return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask,
                                               enable_gqa=True)
     lib_out = sdpa_decode()[:, :, 0]
+    # the bytes of the slots read (each request's valid keys and values)
     n_bytes = 2 * (2 * B * H * hd + sum(valid) * Hkv * 2 * hd)
     n_ops = 4 * hd * H * sum(valid)
     fd_bound, fd_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
-    entries.append({
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/attention.cu",
-        "wrapper": "src/repro_torch/kernels/flash_attention.py",
-        "replaces": "src/repro/kernels/flash_attention.py:162",
+    decode = {
         "launches": launches["flash_decode"],
         "instance": attention_instances(functions, decode_route(q, kc, vc),
                                         q, vc, H // Hkv, decode=True),
@@ -2596,7 +2654,42 @@ def serve_kernel_entries(torch, np, launches, prompt_lens, routes,
         "library_ms": device_ms(torch, sdpa_decode, 200),
         "bound_ms": fd_bound, "bound_by": fd_by,
         "bound_rate": "HBM 3.35 TB/s; bf16 tensor cores 989 TFLOP/s",
-    })
+    }
+    return prefill, decode
+
+
+def serve_kernel_entries(torch, np, served, functions, hgmma,
+                         rglru_functions):
+    """The kernels line's entries of the attention kernels and the RG-LRU
+    scan, each at the shape its path used (:func:`attention_fields`):
+    RecurrentGemma-2B's serve, with Llama-3-8B's beside it under
+    ``"llama3_8b"``, and the RG-LRU scan per route
+    (:func:`recurrence_entries`).  ``served``: each served arch's
+    (launches, prompt lengths, routes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rglru_scan as rglru
+
+    launches, prompt_lens, routes = served[RG]
+    W = get_config(RG).lru_width
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    fixed = {"route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/attention.cu",
+             "wrapper": "src/repro_torch/kernels/flash_attention.py"}
+    prefill, decode = attention_fields(torch, np, RG, launches, prompt_lens,
+                                       functions, hgmma, gen)
+    entries = [
+        {"name": "flash_attention", **fixed,
+         "replaces": "src/repro/kernels/flash_attention.py:78", **prefill},
+        {"name": "flash_decode", **fixed,
+         "replaces": "src/repro/kernels/flash_attention.py:162", **decode}]
+    L = int(np.median(prompt_lens))
+    lgen = torch.Generator(device="cuda")
+    lgen.manual_seed(14)
+    l_launches, l_lens, l_routes = served[LLAMA]
+    for entry, fields in zip(entries, attention_fields(
+            torch, np, LLAMA, l_launches, l_lens, functions, hgmma, lgen)):
+        entry["llama3_8b"] = dict(fields, routes=l_routes[entry["name"]])
 
     # ---- RG-LRU scan: the decode step and the median prompt --------------
     def scan_inputs(B, T):
@@ -2623,8 +2716,8 @@ def serve_kernel_entries(torch, np, launches, prompt_lens, routes,
          "dtype": "float32"})
     tol = {"flash_attention": TOL["bfloat16"], "flash_decode": TOL["bfloat16"],
            "rglru_scan": RGLRU_ATOL}
-    ok = all(e["launches"] > 0 and e["max_abs_err"] <= tol[e["name"]]
-             for e in entries)
+    ok = all(f["launches"] > 0 and f["max_abs_err"] <= tol[e["name"]]
+             for e in entries for f in (e, e.get("llama3_8b", e)))
     return entries, ok
 
 
@@ -2904,9 +2997,9 @@ def main() -> int:
         serve_launches = phase_slice_serve(torch, np, seed0)
         phase = "serve kernels"
         phase_serve_kernels(torch)
-        for arch in SERVE_ARCHS:
+        for arch, spec in {**SERVE_ARCHS, **CHECK_ARCHS}.items():
             phase = f"model check {arch}"
-            phase_model_check(torch, np, arch)
+            phase_model_check(torch, np, arch, spec)
         served = {}
         for arch in SERVE_ARCHS:
             phase = f"serve {arch}"
@@ -2917,7 +3010,7 @@ def main() -> int:
             session_launches, scenario_launches, serve_launches,
             usage_paper)
         serve_entries, serve_ok = serve_kernel_entries(
-            torch, np, *served[RG], libraries["attention"]["ptxas"], hgmma,
+            torch, np, served, libraries["attention"]["ptxas"], hgmma,
             libraries["rglru"]["ptxas"])
         wkv, wkv_ok = wkv6_entries(torch, np, *served[RWKV],
                                    libraries["wkv6"]["ptxas"])

@@ -7,7 +7,8 @@ Hopper kernels:
   engine, with the §4.6 OPT=MIN / OPT=AVG reallocations batched onto the
   device and the water-filling in CUDA; its public surface is
   :mod:`repro_torch.api`;
-* the model substrate's serving path for RecurrentGemma-2B and RWKV6-7B —
+* the model substrate's serving path for RecurrentGemma-2B, RWKV6-7B and
+  the dense decoders (Llama-3-8B, Qwen3-8B, SmolLM-360M, Granite-3-2B) —
   :mod:`repro_torch.train.serve` (``BatchedServer``: prefill and
   continuous-batching decode) over :mod:`repro_torch.models`, with flash
   attention, flash decode, the RG-LRU scan and the RWKV6 WKV recurrence in

@@ -90,6 +90,15 @@ from .workloads.registry import (WorkloadSpec, list_workloads, make_trace,
                                  workload_kind)
 from .workloads.trace import Trace, as_trace
 
+
+def __getattr__(name):
+    # live view over the open registry: kinds registered after this module
+    # imported still appear (a static re-export would freeze a snapshot)
+    if name == "WORKLOAD_KINDS":
+        from .workloads.registry import WORKLOAD_KINDS
+        return WORKLOAD_KINDS
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 __all__ = [
     # one-call entry points
     "simulate", "sweep", "list_policies",
@@ -107,8 +116,8 @@ __all__ = [
     # engine + metrics
     "Engine", "SimParams", "SimResult", "max_stretch_lower_bound",
     # workloads + scenarios
-    "JobSpec", "Trace", "as_trace", "WorkloadSpec", "make_trace",
-    "make_trace_ir", "parse_workload", "register_workload",
+    "JobSpec", "Trace", "as_trace", "WorkloadSpec", "WORKLOAD_KINDS",
+    "make_trace", "make_trace_ir", "parse_workload", "register_workload",
     "workload_kind", "list_workloads", "stream_trace",
     "ClusterEvent", "apply_scenario", "apply_scenario_trace",
     "parse_scenario_chain", "list_scenarios", "scenario_docs",

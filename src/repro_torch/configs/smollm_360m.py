@@ -1,0 +1,20 @@
+"""SmolLM-360M  [hf:HuggingFaceTB/SmolLM-360M] (llama-arch small).
+
+32L d_model=960 15H (GQA kv=5) d_ff=2560 vocab=49152, tied embeddings.
+"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-360m",
+    family="dense",
+    n_layers=32,
+    d_model=960,
+    n_heads=15,
+    n_kv_heads=5,
+    d_ff=2560,
+    vocab=49152,
+    head_dim=64,
+    tie_embeddings=True,
+    rope_theta=1e4,
+    mlp_act="swiglu",
+)

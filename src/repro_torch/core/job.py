@@ -12,13 +12,15 @@ simulation/bound purposes but MUST NOT be read by scheduling policies.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
 
 __all__ = [
     "JobSpec",
+    "JobState",
     "NodePool",
+    "rebuild_pool",
     "RUNNING",
     "PAUSED",
     "PENDING",
@@ -60,6 +62,47 @@ class JobSpec:
         return self.n_tasks * self.proc_time * self.cpu_need
 
 
+@dataclass
+class JobState:
+    """Dynamic, scheduler-visible state of a submitted job (the per-job
+    record of the host oracle; the engine keeps the same fields as
+    columns, :mod:`repro_torch.core.state`)."""
+
+    spec: JobSpec
+    status: str = PENDING
+    vt: float = 0.0                      # virtual time (integral of yield)
+    yld: float = 0.0                     # current yield in [0, 1]
+    mapping: Optional[List[int]] = None  # node id per task, len n_tasks
+    penalty_until: float = -np.inf       # zero progress until then
+    completed_at: Optional[float] = None
+    n_pmtn: int = 0
+    n_mig: int = 0
+    started_once: bool = False
+
+    # ---- scheduler-visible quantities (no proc_time!) -------------------
+    def flow_time(self, now: float) -> float:
+        return now - self.spec.release
+
+    def priority(self, now: float) -> float:
+        """flow_time / virtual_time**2 (paper §4.1); +inf when vt == 0."""
+        if self.vt <= 0.0:
+            return np.inf
+        return self.flow_time(now) / (self.vt * self.vt)
+
+    def priority_key(self, now: float):
+        """Sort key: larger = higher priority; ties by submission order
+        (earlier submission wins, §4.1)."""
+        return (self.priority(now), -self.spec.jid)
+
+    # ---- simulator-side quantities --------------------------------------
+    def remaining_vt(self) -> float:
+        return self.spec.proc_time - self.vt
+
+    @property
+    def is_running(self) -> bool:
+        return self.status == RUNNING
+
+
 class NodePool:
     """Tracks per-node CPU load (sum of needs of resident tasks) and free
     memory.  CPU may be oversubscribed (load > 1); memory never."""
@@ -87,9 +130,24 @@ class NodePool:
             self.load[node] -= spec.cpu_need
             self.mem_free[node] += spec.mem_req
 
+    def max_load(self) -> float:
+        return float(self.load.max()) if self.n else 0.0
+
+    def fits(self, spec: JobSpec, node: int) -> bool:
+        return self.mem_free[node] >= spec.mem_req - 1e-12
+
     def masked_loads(self, mem_req: float) -> np.ndarray:
         """Fresh candidate array for greedy placement: per-node load with
         memory-infeasible nodes masked to +inf.  The caller owns the array
         and keeps it current with O(1) writes per placement instead of
         rebuilding the mask per task."""
         return np.where(self.mem_free >= mem_req - 1e-12, self.load, np.inf)
+
+
+def rebuild_pool(n_nodes: int, jobs: Dict[int, JobState]) -> NodePool:
+    """Construct a NodePool from the mappings of all running jobs."""
+    pool = NodePool(n_nodes)
+    for js in jobs.values():
+        if js.status == RUNNING and js.mapping is not None:
+            pool.place(js.spec, js.mapping)
+    return pool

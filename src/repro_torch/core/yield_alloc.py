@@ -21,7 +21,13 @@ from . import alloc_kernels, alloc_reference
 from .alloc_kernels import CSRIncidence, build_csr
 from .job import JobSpec
 
-__all__ = ["maxmin_yields", "avg_yields", "allocate", "allocate_incidence"]
+__all__ = ["min_yield", "maxmin_yields", "avg_yields", "allocate",
+           "allocate_incidence"]
+
+
+def min_yield(max_load: float) -> float:
+    """Equal yield maximizing the minimum for a given max node load Λ."""
+    return 1.0 / max(1.0, max_load)
 
 
 def maxmin_yields(

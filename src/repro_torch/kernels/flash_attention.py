@@ -52,7 +52,8 @@ from . import cuda_lib
 
 __all__ = ["flash_attention_plain", "flash_attention_cuda",
            "flash_decode_plain", "flash_decode_cuda", "attention_route",
-           "decode_route", "MAX_HEAD_DIM"]
+           "decode_route", "attention_instance", "decode_instance",
+           "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 MAX_DECODE_GROUP = 64      # query heads per KV head in one decode block
@@ -108,6 +109,27 @@ def decode_route(q, k_cache, v_cache) -> str:
     bf16 = k_cache.dtype == v_cache.dtype == torch.bfloat16
     return ("mma" if bf16 and q.shape[-1] % 16 == 0
             and v_cache.shape[-1] % 8 == 0 else "cuda_cores")
+
+
+def attention_instance(q, k, v) -> str:
+    """The prefill kernel a call launches: ``"wgmma<NVP>"``, the
+    tensor-core instance with NVP 64-column V panels
+    (``attn_wgmma_kernel<NVP>``), or ``"cuda_cores"``."""
+    route = attention_route(q, k, v)
+    if route != "wgmma":
+        return route
+    return f"wgmma<{min(4, -(-v.shape[-1] // 64))}>"
+
+
+def decode_instance(q, k_cache, v_cache) -> str:
+    """The decode kernel a call launches: ``"mma<MT>"``, the tensor-core
+    instance with MT 16-row tiles of a KV head's query group
+    (``decode_mma_kernel<TQ, MT>``, MT 1, 2 or 4), or ``"cuda_cores"``."""
+    route = decode_route(q, k_cache, v_cache)
+    if route != "mma":
+        return route
+    mt = -(-(q.shape[-2] // k_cache.shape[-2]) // 16)
+    return f"mma<{mt if mt <= 2 else 4}>"
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,

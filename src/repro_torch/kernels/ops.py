@@ -9,7 +9,8 @@ data decides.
 ``launches`` counts kernel launches per entry point (plain calls are not
 counted), so a run can show that its main path went through the kernels,
 and ``routes`` the launches of an entry point with more than one instance
-by the instance taken; :func:`reset_launches` zeroes both.
+by the instance taken (for attention, the kernel instance: ``"wgmma<2>"``,
+``"mma<1>"``, ...); :func:`reset_launches` zeroes both.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .alloc_matvec import alloc_matvec_cuda, alloc_matvec_plain
-from .flash_attention import (flash_attention_cuda, flash_attention_plain,
+from .flash_attention import (attention_instance, decode_instance,
+                              flash_attention_cuda, flash_attention_plain,
                               flash_decode_cuda, flash_decode_plain)
 from .maxmin_solve import maxmin_solve_cuda, maxmin_solve_plain, solve_route
 from .node_usage import node_usage_cuda, node_usage_plain
@@ -36,6 +38,8 @@ launches: Dict[str, int] = {"alloc_matvec": 0, "maxmin_solve": 0,
                             "rglru_scan": 0, "wkv6": 0}
 #: launches by the instance taken, since the last reset
 routes: Dict[str, Counter] = {"maxmin_solve": Counter(),
+                              "flash_attention": Counter(),
+                              "flash_decode": Counter(),
                               "rglru_scan": Counter(), "wkv6": Counter()}
 
 
@@ -96,6 +100,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)
         launches["flash_attention"] += 1
+        routes["flash_attention"][attention_instance(q, k, v)] += 1
         return out
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, scale=scale)
@@ -108,6 +113,7 @@ def flash_decode(q, k_cache, v_cache, cur_len, *,
     if _on_cuda(q):
         out = flash_decode_cuda(q, k_cache, v_cache, cur_len, scale=scale)
         launches["flash_decode"] += 1
+        routes["flash_decode"][decode_instance(q, k_cache, v_cache)] += 1
         return out
     return flash_decode_plain(q, k_cache, v_cache, cur_len, scale=scale)
 

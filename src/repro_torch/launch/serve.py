@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
         --requests 8 --slots 4 --cache-len 4096 --max-new 96
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --requests 8 --slots 4 --cache-len 4096 --max-new 64
 
 Runs on the card unless ``--device cpu``; parameters are random, drawn
 from ``--seed``.

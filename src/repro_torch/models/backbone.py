@@ -79,9 +79,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def _block_cache(cfg: ModelConfig, spec: BlockSpec, B: int, S: int, dtype,
                  device) -> Dict[str, torch.Tensor]:
     """One layer's ``mix`` cache.  The int8 layout exists for attention KV
-    only: recurrent caches stay bf16 under an int8 request, as the
-    reference's ``_block_cache`` keeps them (the port's ``attn_cache``
-    raises for int8: that layout is a later slice)."""
+    only (:func:`blocks.attn_cache`: int8 values, fp32 scales): recurrent
+    caches stay bf16 under an int8 request, as the reference's
+    ``_block_cache`` keeps them."""
     alt = torch.bfloat16 if dtype == torch.int8 else dtype
     if spec.kind == ATTN:
         return blocks.attn_cache(cfg, B, S, dtype, device)
@@ -98,8 +98,9 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16,
                device="cuda") -> List[Dict[str, Dict[str, torch.Tensor]]]:
     """Decode caches, one ``{"mix": ...}`` dict per layer in plan order.
     bf16 by default, as the reference; the RG-LRU state ``h`` and the RWKV6
-    state ``s`` stay fp32, and an int8 request keeps the other recurrent
-    caches bf16 (:func:`_block_cache`).
+    state ``s`` stay fp32.  An int8 request gives attention layers the
+    quantized KV layout and keeps the other recurrent caches bf16
+    (:func:`_block_cache`).
     A local-attention layer's cache is its window, ``min(S, window)``."""
     device = resolve_device(device)
     _check_served(cfg)

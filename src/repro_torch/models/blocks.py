@@ -16,9 +16,10 @@ filled.
 
 ``<kind>_cache(cfg, B, S, dtype, device)`` — zeroed per-layer cache dict.
 
-Ported: softmax attention (full and sliding-window), RWKV6 (time mix and
-channel mix), the RG-LRU recurrent block and the dense MLP block.  MLA,
-cross-attention and MoE come with later slices (``ROADMAP.md``) and raise
+Ported: softmax attention (full and sliding-window, with the bf16/fp32
+and the int8 KV-cache layouts), RWKV6 (time mix and channel mix), the
+RG-LRU recurrent block and the dense MLP block.  MLA, cross-attention and
+MoE come with later slices (``ROADMAP.md``) and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -43,7 +44,6 @@ _LATER = {
     MLA: "MLA (DeepSeek) blocks come with the other families' slice",
     MOE: "MoE MLPs come with the other families' slice",
     "cross": "cross-attention (Whisper) comes with the other families' slice",
-    "int8": "the int8 KV-cache layout comes with a later slice",
 }
 
 
@@ -76,10 +76,31 @@ def attn_init(cfg: ModelConfig, gen, dtype, device):
 
 
 def attn_cache(cfg: ModelConfig, B: int, S: int, dtype, device):
-    if dtype == torch.int8:
-        raise not_ported("int8")
+    """KV cache.  dtype int8 selects the quantized layout: int8 ``k`` and
+    ``v`` with fp32 scales ``ks`` and ``vs``, one a token and KV head
+    (:func:`_kv_quant`), which halves the bytes a decode step reads from
+    the cache."""
     shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": _zeros(shape, dtype, device), "v": _zeros(shape, dtype, device)}
+    cache = {"k": _zeros(shape, dtype, device),
+             "v": _zeros(shape, dtype, device)}
+    if dtype == torch.int8:
+        cache["ks"] = _zeros(shape[:3], torch.float32, device)
+        cache["vs"] = _zeros(shape[:3], torch.float32, device)
+    return cache
+
+
+def _kv_quant(x):
+    """x: (B, T, H, hd) -> (int8 values, (B, T, H) fp32 scales): a
+    symmetric scale a token and head, ``amax / 127`` clamped at 1e-12, then
+    round (half to even), clip to +-127 and cast."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequant(q, scale, dtype=torch.bfloat16):
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def _qkv(cfg: ModelConfig, p, x, positions):
@@ -104,17 +125,28 @@ def attn_apply(cfg: ModelConfig, p, x, mode: str, cache, pos, *,
         batched = pos_t.dim() == 1         # per-request positions (serving)
         positions = pos_t[:, None] if batched else pos_t.reshape(1)
         q, k, v = _qkv(cfg, p, h, positions)
+        quant = "ks" in cache              # int8 KV layout
         S = cache["k"].shape[1]
         # the ring slot (window > 0) or the last slot: as the reference
         slot = pos_t % S if window > 0 else torch.clamp(pos_t, max=S - 1)
-        for name, val in (("k", k), ("v", v)):
+        if quant:
+            (kq, ks1), (vq, vs1) = _kv_quant(k), _kv_quant(v)
+            writes = (("k", kq), ("ks", ks1), ("v", vq), ("vs", vs1))
+        else:
+            writes = (("k", k), ("v", v))
+        for name, val in writes:
             buf = cache[name]
             val = val[:, 0].to(buf.dtype)
             if batched:
                 buf[torch.arange(B, device=x.device), slot] = val
             else:
                 buf[:, int(slot)] = val
-        o = kops.flash_decode(q[:, 0], cache["k"], cache["v"], pos_t)
+        if quant:       # the whole cache, dequantized for the kernel
+            k_c = _kv_dequant(cache["k"], cache["ks"], h.dtype)
+            v_c = _kv_dequant(cache["v"], cache["vs"], h.dtype)
+        else:
+            k_c, v_c = cache["k"], cache["v"]
+        o = kops.flash_decode(q[:, 0], k_c, v_c, pos_t)
         y = (o.reshape(B, -1) @ wo)[:, None]
         return x + y, cache
 
@@ -125,7 +157,11 @@ def attn_apply(cfg: ModelConfig, p, x, mode: str, cache, pos, *,
     y = o.reshape(B, T, -1) @ wo
     if mode == "prefill" and cache is not None:
         S = cache["k"].shape[1]
-        for name, val in (("k", k), ("v", v)):
+        pairs = [("k", k), ("v", v)]
+        if "ks" in cache:                  # int8 KV layout
+            (kq, ks1), (vq, vs1) = _kv_quant(k), _kv_quant(v)
+            pairs = [("k", kq), ("v", vq), ("ks", ks1), ("vs", vs1)]
+        for name, val in pairs:
             buf = cache[name]
             if T >= S:      # keep the last S tokens (ring window fully filled)
                 buf.copy_(val[:, T - S:])

@@ -4,7 +4,10 @@ The engine owns the simulation clock, the structure-of-arrays job state
 (``repro_torch.core.state.EngineState``), the node pool, cluster events and
 all accounting (penalties, bandwidth, utilization integrals, metrics).
 Scheduling behaviour is a pluggable :class:`Policy`, assembled from
-components by :mod:`repro_torch.sched.components`.
+components by :mod:`repro_torch.sched.components`.  The monolithic seed
+classes the components were cut from — :class:`DFRSPolicy` (paper §4) and
+:class:`BatchPolicy` (FCFS / EASY, §5.2) — stay as the bit-identity oracle
+(:func:`make_seed_policy`).
 
 Fluid model (§5.1): between events every running job j progresses at its
 yield (vt += y_j·dt) and completes when vt reaches p_j; preemption-resumes
@@ -21,14 +24,18 @@ pure-Python oracle instead, ahead of any backend.
 """
 from __future__ import annotations
 
-from collections import Counter
+import heapq
+import math
+from collections import Counter, deque
 from dataclasses import dataclass, field, replace as dc_replace
+from itertools import islice
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..core.greedy import greedy_place
+from ..core.greedy import greedy_p, greedy_place, greedy_pm
 from ..core.job import COMPLETED, PAUSED, PENDING, RUNNING, JobSpec
+from ..core.mcb8 import mcb8
 from ..core.policies import PolicySpec, parse_policy
 from ..core.state import (
     S_CANCELLED,
@@ -39,11 +46,13 @@ from ..core.state import (
     JobView,
 )
 from ..core import alloc_kernels
+from ..core.stretch_opt import improve_avg_stretch, improve_max_stretch, mcb8_stretch
 from ..core.yield_alloc import allocate, allocate_incidence
 from ..workloads.trace import Trace
 from .cluster import ClusterEvent
 
-__all__ = ["SimParams", "SimResult", "Engine", "Policy", "make_policy",
+__all__ = ["SimParams", "SimResult", "Engine", "Policy", "DFRSPolicy",
+           "BatchPolicy", "make_policy", "make_seed_policy",
            "resolve_policy_arg"]
 
 _EPS = 1e-9
@@ -148,9 +157,170 @@ class Policy:
         pass
 
 
+class DFRSPolicy(Policy):
+    """Dynamic fractional resource scheduling (paper §4), parameterized by a
+    :class:`repro_torch.core.policies.PolicySpec`."""
+
+    handles_cluster_events = True
+
+    def __init__(self, spec: PolicySpec):
+        if spec.is_batch:
+            raise ValueError("BatchPolicy handles FCFS/EASY")
+        self.spec = spec
+        self.periodic_kind = spec.periodic
+        self._stretch_yields_set = False
+
+    def bind(self, engine: "Engine") -> None:
+        super().bind(engine)
+        self._stretch_yields_set = False    # reset per engine run
+
+    # ---- helpers --------------------------------------------------------
+    def _pinned(self) -> Dict[int, List[int]]:
+        """Jobs protected from remapping by MINVT/MINFT (§4.3)."""
+        spec = self.spec
+        pins: Dict[int, List[int]] = {}
+        if spec.minvt is None and spec.minft is None:
+            return pins
+        now = self.e.state.now
+        for js in self.e.state.running():
+            if spec.minvt is not None and js.vt < spec.minvt:
+                pins[js.spec.jid] = list(js.mapping)
+            elif spec.minft is not None and js.flow_time(now) < spec.minft:
+                pins[js.spec.jid] = list(js.mapping)
+        return pins
+
+    def _apply_mcb8(self) -> None:
+        e = self.e
+        cands = e.state.uncompleted()
+        if not cands:
+            return
+        res = mcb8(
+            cands, e.params.n_nodes, e.state.now,
+            pinned=self._pinned(), alive=e.state.alive,
+        )
+        self._apply_global_mapping(res.mappings, cands)
+
+    def _apply_global_mapping(
+        self, mappings: Dict[int, List[int]], cands: Sequence[JobView]
+    ) -> None:
+        """Apply a from-scratch MCB8 mapping transactionally: the mapping is
+        feasible as a whole, so all removals happen before any placement."""
+        e = self.e
+        migrations: List[Tuple[JobView, List[int]]] = []
+        starts: List[Tuple[JobView, List[int]]] = []
+        for js in cands:
+            new_map = mappings.get(js.spec.jid)
+            if js.status == RUNNING:
+                if new_map is None:
+                    e.pause(js)
+                elif _node_multiset(js.mapping) != _node_multiset(new_map):
+                    migrations.append((js, new_map))
+            elif new_map is not None:
+                starts.append((js, new_map))
+        e.migrate_many(migrations)
+        for js, new_map in starts:
+            e.start(js, new_map)
+
+    def _apply_stretch_per(self) -> None:
+        e = self.e
+        cands = e.state.uncompleted()
+        if not cands:
+            return
+        res = mcb8_stretch(
+            cands, e.params.n_nodes, e.state.now, e.params.period,
+            pinned=self._pinned(), alive=e.state.alive,
+        )
+        self._apply_global_mapping(res.mappings, cands)
+        running = e.state.running()
+        mappings = {js.spec.jid: js.mapping for js in running}
+        ylds = {js.spec.jid: res.yields.get(js.spec.jid, 0.0) for js in running}
+        if self.spec.opt == "MAX":
+            ylds = improve_max_stretch(
+                running, mappings, ylds, e.params.n_nodes, e.state.now,
+                e.params.period,
+            )
+        else:
+            ylds = improve_avg_stretch(
+                running, mappings, ylds, e.params.n_nodes, e.state.now,
+                e.params.period,
+            )
+        for js in running:
+            js.yld = float(min(1.0, ylds.get(js.spec.jid, 0.0)))
+        self._stretch_yields_set = True
+
+    # ---- hooks ----------------------------------------------------------
+    def on_submit(self, js: JobView) -> None:
+        e = self.e
+        kind = self.spec.on_submit
+        if kind is None:
+            return
+        if kind == "greedy":
+            mapping = greedy_place(e.state.pool.copy(), js.spec)
+            if mapping is not None:
+                e.start(js, mapping)
+            return
+        if kind in ("greedyP", "greedyPM"):
+            fn = greedy_p if kind == "greedyP" else greedy_pm
+            running = e.state.running()
+            adm = fn(e.state.pool.copy(), js.spec, running, e.state.now)
+            if adm.mapping is None:
+                return
+            by_jid = {j.spec.jid: j for j in running}
+            for jid in adm.paused:
+                e.pause(by_jid[jid])
+            e.migrate_many(
+                [(by_jid[jid], new_map) for jid, new_map in adm.moved.items()])
+            e.start(js, adm.mapping)
+            return
+        if kind == "mcb8":
+            self._apply_mcb8()
+            return
+        raise ValueError(kind)
+
+    def on_complete(self) -> None:
+        e = self.e
+        kind = self.spec.on_complete
+        if kind is None:
+            return
+        if kind == "greedy":
+            waiting = sorted(
+                (j for j in e.state.uncompleted() if j.status in (PENDING, PAUSED)),
+                key=lambda j: j.priority_key(e.state.now),
+                reverse=True,
+            )
+            for js in waiting:
+                mapping = greedy_place(e.state.pool.copy(), js.spec)
+                if mapping is not None:
+                    e.start(js, mapping)
+            return
+        if kind == "mcb8":
+            self._apply_mcb8()
+            return
+        raise ValueError(kind)
+
+    def on_tick(self) -> None:
+        if self.periodic_kind == "mcb8":
+            self._apply_mcb8()
+        else:
+            self._apply_stretch_per()
+
+    def finalize(self, acted: bool) -> None:
+        if acted:
+            self._reallocate()
+
+    def _reallocate(self) -> None:
+        """Recompute yields for running jobs (§4.6) unless /stretch-per just
+        set them explicitly."""
+        if self._stretch_yields_set:
+            self._stretch_yields_set = False
+            return
+        opt = self.spec.opt if self.spec.opt in ("MIN", "AVG") else "MIN"
+        _reallocate_yields(self.e, opt)
+
+
 def _reallocate_yields(e: "Engine", opt: str) -> None:
-    """The §4.6 yield recomputation for every running job (run by the
-    ``opt`` policy components)."""
+    """The §4.6 yield recomputation for every running job (shared by
+    ``DFRSPolicy`` and the ``opt`` policy components)."""
     st = e.state
     run = st.running_indices()
     if alloc_kernels.reference_kernels_active():
@@ -169,11 +339,115 @@ def _reallocate_yields(e: "Engine", opt: str) -> None:
     st.yld[run] = ylds
 
 
+class BatchPolicy(Policy):
+    """FCFS / EASY backfilling (paper §5.2) on the unified engine.
+
+    Nodes are allocated integrally and exclusively: job j occupies n_j whole
+    nodes at yield 1 for exactly p_j seconds.  EASY gives the queue head a
+    reservation at the earliest time it could start under FCFS and backfills
+    any job that does not interfere with it; as in the paper, EASY is given
+    *perfect* processing-time estimates (a best case for the baseline).
+    Cluster events are ignored — the baselines do not model failures.
+    """
+
+    def __init__(self, algo: str):
+        algo = algo.upper()
+        if algo not in ("FCFS", "EASY"):
+            raise ValueError(algo)
+        self.algo = algo
+        self.queue: deque = deque()                     # FIFO: O(1) head pops
+        self.free: List[int] = []                       # free node ids (heap)
+        self.running: List[Tuple[float, int, int]] = [] # (end, jid, n_tasks)
+        self._dirty = False
+
+    def bind(self, engine: "Engine") -> None:
+        # bind() is the per-engine reset: a Policy instance may be reused
+        # across Engine runs, so no run state can survive it
+        super().bind(engine)
+        self.queue = deque()
+        self.running = []
+        self._dirty = False
+        self.free = list(range(engine.params.n_nodes))
+        heapq.heapify(self.free)
+
+    def validate(self, specs: Sequence[JobSpec], params: SimParams) -> None:
+        for s in specs:
+            if s.n_tasks > params.n_nodes:
+                raise ValueError(
+                    f"job {s.jid} needs {s.n_tasks} > {params.n_nodes} nodes")
+
+    def on_submit(self, js: JobView) -> None:
+        self.queue.append(js)
+        self._dirty = True
+
+    def on_job_completed(self, js: JobView) -> None:
+        # called before the engine clears the mapping — reclaim the nodes
+        jid = js.spec.jid
+        self.running = [r for r in self.running if r[1] != jid]
+        for node in js.mapping:
+            heapq.heappush(self.free, node)
+        self._dirty = True
+
+    def finalize(self, acted: bool) -> None:
+        if self._dirty:
+            self._try_start()
+            self._dirty = False
+
+    # ---- allocation -----------------------------------------------------
+    def _start_job(self, js: JobView) -> None:
+        nodes = [heapq.heappop(self.free) for _ in range(js.spec.n_tasks)]
+        now = self.e.state.now
+        self.running.append((now + js.spec.proc_time, js.spec.jid,
+                             js.spec.n_tasks))
+        self.e.start(js, nodes)
+        js.yld = 1.0            # dedicated nodes, full speed
+
+    def _try_start(self) -> None:
+        now = self.e.state.now
+        q = self.queue
+        # FCFS part: start queue head(s) while they fit.
+        while q and q[0].spec.n_tasks <= len(self.free):
+            self._start_job(q.popleft())
+        if self.algo == "FCFS" or not q:
+            return
+        # EASY backfilling against the head's reservation.
+        changed = True
+        while changed:
+            changed = False
+            head = q[0]
+            ends = sorted(self.running)
+            avail = len(self.free)
+            shadow, extra = math.inf, 0
+            for end, _, n in ends:
+                avail += n
+                if avail >= head.spec.n_tasks:
+                    shadow = end
+                    extra = avail - head.spec.n_tasks
+                    break
+            for i, js in enumerate(islice(q, 1, None), start=1):
+                free = len(self.free)
+                if js.spec.n_tasks <= free and (
+                    now + js.spec.proc_time <= shadow + 1e-9
+                    or js.spec.n_tasks <= min(free, extra)
+                ):
+                    del q[i]
+                    self._start_job(js)
+                    changed = True
+                    break   # recompute the reservation after each backfill
+        return
+
+
 def make_policy(spec: PolicySpec) -> Policy:
     """The engine's policy for a spec: the canonical component composition
-    (``repro_torch.sched.components``)."""
+    (``repro_torch.sched.components``).  The monolithic seed classes above
+    remain importable as the bit-identity oracle."""
     from .components import compose_from_spec
     return compose_from_spec(spec)
+
+
+def make_seed_policy(spec: PolicySpec) -> Policy:
+    """The pre-redesign monolithic classes (golden-equivalence oracle)."""
+    return BatchPolicy(spec.name) if spec.is_batch else DFRSPolicy(spec)
 
 
 def resolve_policy_arg(
@@ -498,7 +772,10 @@ class Engine:
         if self.policy_spec is not None:
             name = self.policy_spec.name
         else:
+            # ComposedPolicy carries .name, BatchPolicy .algo, DFRSPolicy .spec
             name = (getattr(self.policy, "name", None)
+                    or getattr(self.policy, "algo", None)
+                    or getattr(getattr(self.policy, "spec", None), "name", None)
                     or self.policy.__class__.__name__)
         return SimResult(
             policy=name,

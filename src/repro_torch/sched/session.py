@@ -67,8 +67,8 @@ from ..core.state import (S_CANCELLED, S_COMPLETED, S_NOT_ARRIVED, S_PAUSED,
                           S_PENDING, EngineState, RetiredLog)
 from ..workloads.trace import Trace, as_trace
 from .cluster import ClusterEvent
-from .engine import (_EPS, Engine, Policy, SimParams, SimResult,
-                     resolve_policy_arg)
+from .engine import (_EPS, BatchPolicy, DFRSPolicy, Engine, Policy,
+                     SimParams, SimResult, resolve_policy_arg)
 from .narrator import Narrator
 
 __all__ = ["SimSession", "SessionState", "open_session", "SCHEMA",
@@ -214,6 +214,17 @@ def _snapshot_policy_state(pol: Policy) -> Dict[str, Any]:
             if hasattr(c, "snapshot_state"):
                 comps[str(idx)] = c.snapshot_state()
         return {"kind": "composed", "shared": shared, "components": comps}
+    if isinstance(pol, BatchPolicy):
+        return {
+            "kind": "batch-seed",
+            "queue": [js.i for js in pol.queue],
+            "free": list(pol.free),
+            "running": [list(r) for r in pol.running],
+            "dirty": pol._dirty,
+        }
+    if isinstance(pol, DFRSPolicy):
+        return {"kind": "dfrs-seed",
+                "stretch_yields_set": pol._stretch_yields_set}
     raise TypeError(
         f"policy {pol!r} is not snapshottable; implement "
         f"snapshot_state()/restore_state(payload, engine)")
@@ -240,10 +251,24 @@ def _restore_policy_state(pol: Policy, payload: Dict[str, Any],
             pol.components[int(idx)].restore_state(cp, engine)
         return
     if kind in ("batch-seed", "dfrs-seed"):
-        raise ValueError(
-            f"the snapshot's policy state is the JAX package's monolithic "
-            f"seed policy ({kind!r}), which this package does not have; "
-            f"restore it with policy= set to the composed spelling")
+        # (the reference asserts here; a composed policy is a caller's
+        # error worth a message)
+        seed_cls = BatchPolicy if kind == "batch-seed" else DFRSPolicy
+        if not isinstance(pol, seed_cls):
+            raise ValueError(
+                f"the snapshot's policy state is a monolithic seed "
+                f"policy's ({kind!r}), which only a {seed_cls.__name__} "
+                f"takes; fork it with policy= set to the composed spelling")
+    if kind == "batch-seed":
+        pol.queue = deque(st.views[int(i)] for i in payload["queue"])
+        pol.free = [int(n) for n in payload["free"]]
+        pol.running = [(float(e), int(j), int(n))
+                       for e, j, n in payload["running"]]
+        pol._dirty = bool(payload["dirty"])
+        return
+    if kind == "dfrs-seed":
+        pol._stretch_yields_set = bool(payload["stretch_yields_set"])
+        return
     raise ValueError(f"unknown policy-state kind {kind!r}")
 
 
@@ -265,6 +290,8 @@ def _adopt_policy_state(pol: Policy, engine: Engine) -> None:
 
     if hasattr(pol, "adopt_state"):
         pol.adopt_state(engine)
+        return
+    if isinstance(pol, DFRSPolicy):
         return
     if isinstance(pol, ComposedPolicy):
         if not any(c.kind == "submit" and c.component_name == "fcfs-queue"
@@ -302,7 +329,8 @@ def _adopt_policy_state(pol: Policy, engine: Engine) -> None:
         return
     raise TypeError(
         f"cannot adopt live state into policy {pol!r}; implement "
-        f"adopt_state(engine)")
+        f"adopt_state(engine) (seed BatchPolicy is oracle-only — fork onto "
+        f"the composed spelling instead)")
 
 
 # --------------------------------------------------------------------------- #

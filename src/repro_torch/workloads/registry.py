@@ -50,7 +50,7 @@ from .trace import Trace
 __all__ = [
     "WorkloadSpec", "WorkloadKind", "register_workload", "list_workloads",
     "workload_kind", "parse_workload", "make_trace", "make_trace_ir",
-    "stream_trace",
+    "stream_trace", "trace_cache_info", "trace_cache_clear",
     "DEFAULT_STREAM_WINDOW_S",
 ]
 
@@ -115,6 +115,13 @@ def workload_kind(name: str) -> WorkloadKind:
         return _REGISTRY[name]
     raise ValueError(f"unknown workload kind {name!r}; "
                      f"expected one of {tuple(list_workloads())}")
+
+
+def __getattr__(name: str):
+    # live view kept for compatibility with the pre-registry tuple constant
+    if name == "WORKLOAD_KINDS":
+        return tuple(list_workloads())
+    raise AttributeError(name)
 
 
 @dataclass(frozen=True)
@@ -208,6 +215,16 @@ def make_trace_ir(spec: WorkloadSpec) -> Trace:
 def make_trace(spec: WorkloadSpec) -> List[JobSpec]:
     """Materialize the trace for ``spec`` as a fresh ``JobSpec`` list."""
     return make_trace_ir(spec).to_specs()
+
+
+def trace_cache_info():
+    """Per-process memo statistics (hits/misses), for tests and diagnostics."""
+    return make_trace_ir.cache_info()
+
+
+def trace_cache_clear() -> None:
+    """Drop the per-process trace memo (cold-materialization benchmarks)."""
+    make_trace_ir.cache_clear()
 
 
 # --------------------------------------------------------------------------- #

@@ -29,8 +29,9 @@ from repro.kernels.flash_attention import flash_decode as jax_fd  # noqa: E402
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _decode_split, attention_route, decode_route, flash_attention_cuda,
-    flash_attention_plain, flash_decode_cuda, flash_decode_plain)
+    _decode_split, attention_instance, attention_route, decode_instance,
+    decode_route, flash_attention_cuda, flash_attention_plain,
+    flash_decode_cuda, flash_decode_plain)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 _JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -224,6 +225,28 @@ def test_decode_route_by_types_and_head_dims(qdt, kvdt, hd, hdv, route):
     k = _empty((2, 16, 1, hd), kvdt)
     v = _empty((2, 16, 1, hdv), kvdt)
     assert decode_route(q, k, v) == route
+
+
+@pytest.mark.parametrize("H,Hkv,hd,hdv,dt,prefill,decode", [
+    (32, 8, 128, 128, "bfloat16", "wgmma<2>", "mma<1>"),     # Llama-3-8B
+    (10, 1, 256, 256, "bfloat16", "wgmma<4>", "mma<1>"),     # RecurrentGemma
+    (15, 5, 64, 64, "bfloat16", "wgmma<1>", "mma<1>"),       # SmolLM-360M
+    (32, 1, 128, 192, "bfloat16", "wgmma<3>", "mma<2>"),
+    (64, 1, 128, 128, "bfloat16", "wgmma<2>", "mma<4>"),
+    (48, 1, 64, 64, "bfloat16", "wgmma<1>", "mma<4>"),
+    (32, 8, 128, 128, "float32", "cuda_cores", "cuda_cores"),
+])
+def test_instances_name_the_template_arguments(H, Hkv, hd, hdv, dt, prefill,
+                                               decode):
+    """The instance a call launches, as ``ops.routes`` counts it:
+    attn_wgmma_kernel<NVP> with NVP = ceil(hdv / 64), and
+    decode_mma_kernel<TQ, MT> with MT = ceil(group / 16), 3 and 4 both
+    taking the 4-tile instance (csrc/attention.cu)."""
+    q = _empty((1, 8, H, hd), dt)
+    k = _empty((1, 8, Hkv, hd), dt)
+    v = _empty((1, 8, Hkv, hdv), dt)
+    assert attention_instance(q, k, v) == prefill
+    assert decode_instance(q[:, 0], k, v) == decode
 
 
 H100_SMS = 132

@@ -77,8 +77,9 @@ def test_configs_match_the_reference():
     assert asdict(get_config(ARCH)) == asdict(jax_get_config(ARCH))
     assert asdict(get_reduced(ARCH)) == asdict(jax_get_reduced(ARCH))
     assert get_config("recurrentgemma_2b").n_layers == 26
-    with pytest.raises(KeyError):
-        get_config("llama3-8b")          # not served by the port yet
+    assert get_config("llama3-8b").n_kv_heads == 8   # served by the port
+    with pytest.raises(KeyError, match="ROADMAP"):
+        get_config("deepseek-v3-671b")   # not served by the port yet
 
 
 def test_full_config_parameter_count_matches_jax():
@@ -104,8 +105,10 @@ def test_unported_blocks_raise():
         cfg = jax_get_reduced(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             backbone.init_params(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        blocks.attn_cache(get_reduced(ARCH), 1, 8, torch.int8, "cpu")
+    # the int8 KV layout is ported: int8 values with fp32 scales
+    c = blocks.attn_cache(get_reduced(ARCH), 1, 8, torch.int8, "cpu")
+    assert c["k"].dtype == c["v"].dtype == torch.int8
+    assert c["ks"].dtype == c["vs"].dtype == torch.float32
 
 
 # --------------------------------------------------------------------------- #

@@ -240,10 +240,11 @@ def test_wkv6_route(T, dk, dv, route):
 
 
 def test_routes_are_counted_and_reset():
-    """The route counters of the two recurrences sit beside the solve's,
-    start empty, and :func:`ops.reset_launches` clears them; CPU tensors
-    count nothing."""
-    assert set(ops.routes) == {"maxmin_solve", "rglru_scan", "wkv6"}
+    """The route counters of the two recurrences sit beside the solve's
+    and the attention kernels', start empty, and :func:`ops.reset_launches`
+    clears them; CPU tensors count nothing."""
+    assert set(ops.routes) == {"maxmin_solve", "flash_attention",
+                               "flash_decode", "rglru_scan", "wkv6"}
     ops.routes["wkv6"]["chunked"] += 3
     ops.routes["rglru_scan"]["sequential"] += 1
     ops.reset_launches()

@@ -207,8 +207,8 @@ def test_int8_cache_request_keeps_recurrent_caches_bf16(arch):
     """The int8 layout exists for attention KV only: under an int8 request
     the recurrent caches (x_tm, x_cm, conv) stay bf16 and the states (s,
     h) fp32, layer by layer as the reference's ``_block_cache`` gives
-    them.  The port's attention cache still raises for int8 (a later
-    slice), so RecurrentGemma's full ``init_cache`` does too."""
+    them, and attention layers (RecurrentGemma's local attention) get the
+    quantized layout, int8 k / v with fp32 scales, as there too."""
     jcfg, cfg = jax_get_reduced(arch), get_reduced(arch)
     jc = jbb.init_cache(jcfg, 2, 16, dtype=jnp.int8)
     want = [{k: str(np.dtype(x.dtype)) for k, x in g["mix"].items()}
@@ -216,25 +216,25 @@ def test_int8_cache_request_keeps_recurrent_caches_bf16(arch):
     recurrent = {"rwkv6": ("x_tm", "x_cm", "s"), "rglru": ("conv", "h")}
     checked = 0
     for (spec, _), dtypes in zip(layer_groups(cfg), want):
+        got = backbone._block_cache(cfg, spec, 2, 16, torch.int8, "cpu")
         if spec.kind not in recurrent:
             assert dtypes["k"] == "int8"
-            with pytest.raises(NotImplementedError):
-                backbone._block_cache(cfg, spec, 2, 16, torch.int8, "cpu")
-            continue
-        got = backbone._block_cache(cfg, spec, 2, 16, torch.int8, "cpu")
-        assert sorted(got) == sorted(dtypes) == sorted(recurrent[spec.kind])
+            assert sorted(got) == sorted(dtypes) == ["k", "ks", "v", "vs"]
+        else:
+            assert sorted(got) == sorted(dtypes) == sorted(
+                recurrent[spec.kind])
+            checked += 1
         for key, t in got.items():
             assert str(t.dtype).removeprefix("torch.") == dtypes[key], key
-        checked += 1
     assert checked > 0
-    if any(spec.kind not in recurrent for spec in layer_plan(cfg)):
-        with pytest.raises(NotImplementedError):
-            backbone.init_cache(cfg, 2, 16, dtype=torch.int8, device="cpu")
-    else:
-        caches = backbone.init_cache(cfg, 2, 16, dtype=torch.int8,
-                                     device="cpu")
-        assert [c["mix"]["x_tm"].dtype for c in caches] == (
-            [torch.bfloat16] * len(caches))
+    caches = backbone.init_cache(cfg, 2, 16, dtype=torch.int8, device="cpu")
+    assert len(caches) == len(layer_plan(cfg))
+    for c, spec in zip(caches, layer_plan(cfg)):
+        if spec.kind in recurrent:
+            key = "x_tm" if spec.kind == "rwkv6" else "conv"
+            assert c["mix"][key].dtype == torch.bfloat16
+        else:
+            assert c["mix"]["k"].dtype == torch.int8
 
 
 def test_int8_cache_request_decodes_as_the_bf16_cache(model):
