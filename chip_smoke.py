@@ -192,7 +192,37 @@ fails ends the run with exit code 1:
                sequential route, the median served prompt on the chunked
                one, with the sequential route's time at that shape
                beside it), with the ptxas registers and spills of the
-               route's kernel functions.
+               route's kernel functions; beside each model kernel, its
+               launches on the training path (phase 9);
+9. train     — the training path, fp32, AdamW unless said: (b) ``python -m repro_torch.launch.train``
+               as a process at SmolLM-360M's full size (32 layers, d_model
+               960, 15 query heads over 5 of 64, vocab 49,152, tied),
+               batch 4 x 1,024 tokens, 12 steps, a checkpoint every 4,
+               alone: ms a step, tokens/s, peak device memory, attention
+               launches a step (forward and remat recompute: 2 a layer,
+               all on ``cuda_cores``), the least time a step could take
+               (FP32 67 TFLOP/s); one step of the same size traced in this
+               process for the busy share and the port's kernels' share;
+               then the same run with failures injected at steps 6 and 9
+               (in the background while (a) runs), which must restart
+               twice, from steps 4 and 8, and end within rel 1e-5 of the
+               clean run's final loss (the gap is reported); (a) full
+               width, cut in depth, weights drawn on the card and copied
+               to the host, the same tokens on both sides, a few steps on
+               the card (kernels forward, autograd of the plain versions
+               backward) and on the host (plain versions): SmolLM-360M 2
+               layers at 2 x 512 tokens, 3 steps (learning rate 0, then
+               1e-3), under AdamW, Adafactor with 2 microbatches and AdamW
+               with int8 compression; RecurrentGemma-2B one super-block at
+               1 x 256 (the RG-LRU scan on its chunked route) and RWKV6-7B
+               one layer at 1 x 256 (the WKV recurrence on its chunked
+               route), one step each at 1e-3;
+               every step's loss and grad norm within rel 1e-4, every
+               leaf of the final state (parameters, moments, error
+               feedback) within atol = rtol = 2e-3, Adafactor's bf16 first
+               moment and a compressed run's leaves within a budget (up to
+               max(2, 0.5 %) of a leaf's elements outside, all within
+               0.05), and every kernel launch counted on its instance.
 
 Then the nvidia-smi line again, the kernels line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -201,6 +231,7 @@ port beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -2962,6 +2993,406 @@ def node_usage_entry(torch, functions, launches, paper):
     }
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: train                                                               #
+# --------------------------------------------------------------------------- #
+# a learning rate of 0 at step 1 where a check takes more than one step
+# (then the moments carry step 1's gradients into the comparison), 1e-3
+# from the first step where it takes one
+TRAIN_LR, TRAIN_TOTAL = 1e-3, 100
+TRAIN_METRIC_RTOL = 1e-4        # loss and grad_norm of every step
+TRAIN_TOL = MODEL_TOL           # every leaf of the final state, atol = rtol
+# a leaf class held to a budget instead: up to max(2, 0.5 %) of its
+# elements outside TRAIN_TOL, all within 0.05 (tests/train_compare.py)
+TRAIN_LOOSE_FRAC, TRAIN_LOOSE_ABS = 0.005, 0.05
+# (a): (arch, layers, batch, tokens, steps, microbatches, Adafactor, int8
+# compression, weight seed).  RecurrentGemma-2B and RWKV6-7B take one step:
+# their host side is bound by the optimizer over their vocabularies'
+# embedding and head (2 x 655 M and 2 x 268 M parameters), which a shorter
+# T does not cut
+TRAIN_CHECKS = (
+    ("smollm-360m", 2, 2, 512, 3, 1, False, False, 2406),
+    ("smollm-360m", 2, 2, 512, 3, 2, True, False, 2406),
+    ("smollm-360m", 2, 2, 512, 3, 1, False, True, 2406),
+    (RG, 3, 1, 256, 1, 1, False, False, 2402),
+    (RWKV, 1, 1, 256, 1, 1, False, False, 2404),
+)
+# the kernels each arch's training launches, and the instance of each
+TRAIN_KERNELS = {"smollm-360m": {"flash_attention": "cuda_cores"},
+                 RG: {"flash_attention": "cuda_cores",
+                      "rglru_scan": "chunked"},
+                 RWKV: {"wkv6": "chunked"}}
+# (b): the launcher at full size
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "smollm-360m", 12, 4, 1024
+TRAIN_CKPT_EVERY, TRAIN_FAILURES = 4, (6, 9)
+TRAIN_LOSS_RTOL = 1e-5          # the reference's restart bound
+
+
+def _leaf_diff(torch, card, host, bf16):
+    """(elements outside TRAIN_TOL — one bf16 rounding step more for a
+    bf16 leaf —, the largest absolute difference) of one leaf, worked on
+    the card."""
+    c = card.detach().float()
+    h = host.detach().to(c.device).float()
+    d = (c - h).abs()
+    rtol = TRAIN_TOL + (2.0 ** -7 if bf16 else 0.0)
+    return int((d > TRAIN_TOL + rtol * h.abs()).sum()), float(d.max())
+
+
+def _compare_states(torch, card, host, loose):
+    """Every leaf of the card's final train state against the host's, by
+    class (params, mu, nu, err): leaves, elements, elements outside
+    TRAIN_TOL, the largest difference; ``loose`` names the classes held to
+    the budget, the others must have none outside."""
+    from repro_torch.train.tree import flatten
+
+    classes = {"params": card.params, "mu": card.opt.mu, "nu": card.opt.nu,
+               "err": card.err}
+    hosts = {"params": host.params, "mu": host.opt.mu, "nu": host.opt.nu,
+             "err": host.err}
+    out, ok = {}, bool(int(card.opt.step) == int(host.opt.step))
+    for name, tree in classes.items():
+        cl, hl = flatten(tree)[0], flatten(hosts[name])[0]
+        if not cl:
+            continue
+        n_out = n_el = 0
+        worst = 0.0
+        for c, h in zip(cl, hl):
+            bad, d = _leaf_diff(torch, c, h, c.dtype == torch.bfloat16)
+            n_out += bad
+            n_el += c.numel()
+            worst = max(worst, d)
+            if name in loose:
+                ok &= (bad <= max(2, int(TRAIN_LOOSE_FRAC * c.numel()))
+                       and d <= TRAIN_LOOSE_ABS)
+            else:
+                ok &= bad == 0
+        out[name] = {"leaves": len(cl), "elements": n_el, "outside": n_out,
+                     "max_abs_diff": worst, "budget": name in loose}
+    return out, ok
+
+
+def train_check(torch, np, case):
+    """Part (a): ``case``'s arch at full width, cut in depth, fp32 weights
+    drawn on the card and copied to the host, ``steps`` train steps on the
+    card (kernels forward) and on the host (plain versions) on the same
+    tokens; every step's loss and grad norm and every leaf of the final
+    state compared; the kernels' launches and instances counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import layer_plan
+    from repro_torch.train import trainer
+    from repro_torch.train.data import data_for
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.tree import leaves, tree_map
+
+    arch, layers, B, T, steps, mb, factored, compress, seed = case
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    card = trainer.init_train_state(cfg, gen, factored=factored,
+                                    compress=compress, device="cuda")
+    params = tree_map(lambda t: t.cpu(), card.params)
+    host = trainer.TrainState(params, init_opt_state(params, factored),
+                              tree_map(torch.zeros_like, params)
+                              if compress else None)
+    init_s = time.perf_counter() - t0
+    step = trainer.make_train_step(
+        cfg, OptConfig(lr=TRAIN_LR, warmup_steps=min(1, steps - 1),
+                       total_steps=TRAIN_TOTAL, factored=factored),
+        microbatches=mb, compress_grads=compress)
+    data = data_for(cfg, B, T, seed=seed, device="cpu")
+    batches = [data.batch_for_step(i) for i in range(steps)]
+
+    def run(state, device):
+        metrics = []
+        t = time.perf_counter()
+        for b in batches:
+            state, m = step(state, {k: v.to(device) for k, v in b.items()})
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                     "lr")})
+        return state, metrics, time.perf_counter() - t
+
+    host, host_m, host_s = run(host, "cpu")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    card, card_m, card_s = run(card, "cuda")
+    kernels = TRAIN_KERNELS[arch]
+    launches = {k: ops.launches[k] for k in kernels}
+    routes = {k: dict(ops.routes[k]) for k in kernels}
+    # forward and remat recompute: two launches a layer of its kinds a
+    # microbatch a step
+    expected = {k: {inst: 2 * steps * mb * sum(
+        b.kind in _KINDS[k] for b in layer_plan(cfg))}
+        for k, inst in kernels.items()}
+    metric_gap = {k: max(abs(c[k] - h[k]) / max(abs(h[k]), 1e-30)
+                         for c, h in zip(card_m, host_m))
+                  for k in ("loss", "grad_norm")}
+    loose = (("params", "mu", "nu", "err") if compress
+             else ("mu",) if factored else ())
+    states, states_ok = _compare_states(torch, card, host, loose)
+    finite = all(np.isfinite(m["loss"]) for m in card_m)
+    ok = (finite and states_ok and routes == expected
+          and all(v <= TRAIN_METRIC_RTOL for v in metric_gap.values()))
+    emit({"phase": "train", "part": "card against host", "ok": ok,
+          "arch": arch, "layers": layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "batch": B, "tokens": T, "steps": steps,
+          "microbatches": mb,
+          "optimizer": "adafactor" if factored else "adamw",
+          "compress_grads": compress, "dtype": "float32",
+          "params": sum(p.numel() for p in leaves(card.params)),
+          "tolerance": {"metrics_rtol": TRAIN_METRIC_RTOL,
+                        "state_atol": TRAIN_TOL, "state_rtol": TRAIN_TOL,
+                        "budget": {"frac": TRAIN_LOOSE_FRAC,
+                                   "abs": TRAIN_LOOSE_ABS}},
+          "card_metrics": card_m, "host_metrics": host_m,
+          "metric_rel_gap": metric_gap, "state": states,
+          "launches": launches, "routes": routes,
+          "expected_routes": expected, "init_s": init_s,
+          "host_s": host_s, "card_s": card_s})
+    del card, host
+    torch.cuda.empty_cache()
+    if not ok:
+        raise PhaseFailed(f"training on the card disagrees with the host "
+                          f"({arch}, {case[5:8]}) or a kernel ran off its "
+                          f"instance")
+    return launches
+
+
+def _launcher(args, tmp, name):
+    """``python -m repro_torch.launch.train`` at the full size, with
+    ``args``, from the root of this checkout: its report, wall and
+    output."""
+    ck, rep = tmp / f"ckpt_{name}", tmp / f"{name}.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-every",
+           str(TRAIN_CKPT_EVERY), "--ckpt-dir", str(ck), "--report",
+           str(rep), *args]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=_cli_env(), cwd=str(ROOT)), ck, rep
+
+
+def _finish(proc, ck, rep, t0, timeout=600):
+    import shutil
+
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise PhaseFailed("the training launcher did not end in time")
+    wall = time.perf_counter() - t0
+    shutil.rmtree(ck, ignore_errors=True)
+    if proc.returncode != 0:
+        raise PhaseFailed(f"the training launcher failed "
+                          f"({proc.returncode}): {err[-3000:]}")
+    report = json.loads(rep.read_text())
+    report.update(wall_s=wall, stdout=out.strip().splitlines())
+    return report
+
+
+def traced_train_step(torch):
+    """One launcher-sized step of TRAIN_ARCH in this process after one
+    untraced step, under the device trace: the step's wall, the card's
+    busy share and the port's kernels' seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train.data import data_for
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = init_train_state(cfg, gen, device="cuda")
+    step = make_train_step(cfg, OptConfig(
+        lr=3e-4, warmup_steps=5, total_steps=TRAIN_STEPS))
+    data = data_for(cfg, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    state, _ = step(state, data.batch_for_step(0))
+    batch = data.batch_for_step(1)
+    torch.cuda.synchronize()
+    gc.collect()            # this process's heap is large by now
+    ops.reset_launches()
+    prof, trace_error = start_device_trace(torch)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = stop_device_trace(prof, trace_error, wall)
+    busy["wall_s"] = wall
+    busy["launches"] = {"flash_attention": ops.launches["flash_attention"]}
+    port = sum((busy.get("port_kernels_s") or {}).values())
+    if busy.get("busy_s"):
+        busy["port_kernels_share"] = port / wall
+        busy["port_kernels_share_of_busy"] = port / busy["busy_s"]
+    del state, m, prof
+    torch.cuda.empty_cache()
+    return busy
+
+
+def phase_train(torch, np):
+    """Phase 9: (b) the launcher at full size, clean, alone; one traced
+    step; then (b)'s run with failures in the background while (a) holds
+    the card's training against the host's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import layer_plan
+
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = cfg.param_count()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        proc, ck, rep = _launcher([], tmp, "clean")
+        clean = _finish(proc, ck, rep, time.perf_counter())
+        trace = traced_train_step(torch)
+        t0 = time.perf_counter()
+        faulty_proc, fck, frep = _launcher(
+            ["--inject-failures", ",".join(map(str, TRAIN_FAILURES))], tmp,
+            "faulty")
+        check_launches = Counter()
+        threads = torch.get_num_threads()
+        # leave the launcher's process a core or two for its dispatch
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+        try:
+            for case in TRAIN_CHECKS:
+                launches = train_check(torch, np, case)
+                for k, v in launches.items():
+                    check_launches[f"{case[0]}:{k}"] += v
+        except BaseException:
+            faulty_proc.kill()
+            faulty_proc.communicate()
+            raise
+        finally:
+            torch.set_num_threads(threads)
+        faulty = _finish(faulty_proc, fck, frep, t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    steady = clean["step_s"][1:]
+    ms = float(np.median(steady)) * 1e3
+    att = clean["launches"]["flash_attention"]
+    per_step = att / len(clean["step_s"])
+    n_attn = sum(b.kind in _KINDS["flash_attention"]
+                 for b in layer_plan(cfg))
+    gap = abs(faulty["losses"][-1] - clean["losses"][-1])
+    rel_gap = gap / abs(clean["losses"][-1])
+    # the bound: 8 flops a parameter a token (forward, remat recompute,
+    # backward), plus causal attention's 8 B H T^2 hd a layer, at FP32
+    matmul_flops = 8 * n_params * tokens
+    attn_flops = 8 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 \
+        * cfg.head_dim * n_attn
+    bound_s = (matmul_flops + attn_flops) / FP32_OPS_PER_S
+    ok = (clean["n_restarts"] == 0 and clean["final_step"] == TRAIN_STEPS
+          and all(np.isfinite(x) for x in clean["losses"])
+          and faulty["n_restarts"] == 2
+          and faulty["restored_from"] == [4, 8]
+          and faulty["final_step"] == TRAIN_STEPS
+          and rel_gap <= TRAIN_LOSS_RTOL
+          and clean["routes"]["flash_attention"] == {"cuda_cores": att}
+          and per_step == 2 * n_attn)
+    emit({"phase": "train", "part": "launcher", "ok": ok,
+          "arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+          "vocab": cfg.vocab, "tie_embeddings": cfg.tie_embeddings,
+          "param_count": n_params, "dtype": "float32", "optimizer": "adamw",
+          "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "ckpt_every": TRAIN_CKPT_EVERY,
+          "inject_failures": list(TRAIN_FAILURES),
+          "clean": {k: clean[k] for k in (
+              "stdout", "losses", "step_s", "wall_s", "peak_bytes",
+              "launches", "routes", "n_restarts", "final_step")},
+          "faulty": {k: faulty[k] for k in (
+              "stdout", "losses", "restored_from", "n_restarts",
+              "final_step", "wall_s", "peak_bytes")},
+          "final_loss_gap": gap, "final_loss_rel_gap": rel_gap,
+          "final_loss_equal": faulty["losses"][-1] == clean["losses"][-1],
+          "loss_rtol": TRAIN_LOSS_RTOL,
+          "first_step_s": clean["step_s"][0], "ms_per_step": ms,
+          "tokens_per_s": tokens / ms * 1e3,
+          "attention_launches_per_step": per_step,
+          "expected_attention_launches_per_step": 2 * n_attn,
+          "bound_s": bound_s, "bound_by": "operations (FP32 67 TFLOP/s)",
+          "bound_flops": {"matmul": matmul_flops, "attention": attn_flops},
+          "traced_step": trace, "check_launches": dict(check_launches)})
+    if not ok:
+        raise PhaseFailed("the training launcher's runs disagree, did not "
+                          "restart as injected, or launched attention off "
+                          "its instance")
+    return {"flash_attention": {"launches": att, "per_step": per_step,
+                                "routes": clean["routes"]["flash_attention"],
+                                "shape": [TRAIN_BATCH, TRAIN_SEQ,
+                                          cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.head_dim]},
+            "checks": dict(check_launches)}
+
+
+def train_attention_fields(torch, shape):
+    """flash attention at the training path's shape (fp32, causal: the
+    ``cuda_cores`` instance), against its plain version and SDPA, timed
+    with both, beside its bound at FP32 67 TFLOP/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_instance, flash_attention_cuda, flash_attention_plain)
+
+    B, T, H, Hkv, hd = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    q = _randn(torch, gen, (B, T, H, hd), torch.float32)
+    k = _randn(torch, gen, (B, T, Hkv, hd), torch.float32)
+    v = _randn(torch, gen, (B, T, Hkv, hd), torch.float32)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    n_bytes = 4 * (2 * B * T * H * hd + 2 * B * T * Hkv * hd)
+    n_ops = 4 * hd * H * B * attention_pairs(T, T, True, 0)
+    bound, by = bound_ms(n_bytes, n_ops, FP32_OPS_PER_S)
+    return {"instance": attention_instance(q, k, v), "shape": list(shape),
+            "dtype": "float32", "max_abs_err": _err(got, want),
+            "library_max_abs_diff": _err(got, sdpa().transpose(1, 2)),
+            "ms": device_ms(torch, lambda: flash_attention_cuda(
+                q, k, v, causal=True), 10),
+            "plain_ms": device_ms(torch, lambda: flash_attention_plain(
+                q, k, v, causal=True), 2),
+            "library": "F.scaled_dot_product_attention",
+            "library_ms": device_ms(torch, sdpa, 10),
+            "bound_ms": bound, "bound_by": by,
+            "bound_rate": "FP32 67 TFLOP/s; HBM 3.35 TB/s"}
+
+
+def add_train_fields(torch, entries, trained):
+    """Each model kernel's launches on the training path beside its
+    serving ones: attention's in the launcher's clean run (phase 9 (b)),
+    with its time at that shape; each recurrence's chunked route's in its
+    arch's check (phase 9 (a)).  Returns whether the training instance
+    agrees with its plain version."""
+    by_name = {"rglru_scan": f"{RG}:rglru_scan", "wkv6": f"{RWKV}:wkv6"}
+    ok = True
+    for e in entries:
+        if e["name"] == "flash_attention":
+            att = trained["flash_attention"]
+            e["train"] = dict(att, **train_attention_fields(
+                torch, att["shape"]))
+            ok &= (e["train"]["max_abs_err"] <= TOL["float32"]
+                   and att["launches"] > 0)
+        elif e["name"] in by_name and e.get("instance") == "chunked":
+            e["train"] = {"launches": trained["checks"].get(
+                by_name[e["name"]], 0), "route": "chunked",
+                "where": "phase 9 (a)"}
+            ok &= e["train"]["launches"] > 0
+    return ok
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3004,6 +3435,8 @@ def main() -> int:
         for arch in SERVE_ARCHS:
             phase = f"serve {arch}"
             served[arch] = phase_serve(torch, np, arch)
+        phase = "train"
+        trained = phase_train(torch, np)
         phase = "kernels line"
         alloc_entries, alloc_ok = phase_kernel_line(
             torch, np, launches, stats, libraries["alloc"]["ptxas"],
@@ -3015,7 +3448,8 @@ def main() -> int:
         wkv, wkv_ok = wkv6_entries(torch, np, *served[RWKV],
                                    libraries["wkv6"]["ptxas"])
         line = {"kernels": alloc_entries + serve_entries + wkv}
-        ok = alloc_ok and serve_ok and wkv_ok
+        train_ok = add_train_fields(torch, line["kernels"], trained)
+        ok = alloc_ok and serve_ok and wkv_ok and train_ok
     except Exception as exc:  # noqa: BLE001 — reported, then a failing exit
         traceback.print_exc()
         emit({"phase": phase, "ok": False,

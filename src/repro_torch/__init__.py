@@ -1,6 +1,6 @@
 """repro_torch — the PyTorch/CUDA port of the DFRS scheduling reproduction.
 
-It runs two paths of the reference on one device, each with hand-written
+It runs three paths of the reference on one device, each with hand-written
 Hopper kernels:
 
 * the paper's scheduling path — a Lublin trace through the event-loop
@@ -12,7 +12,11 @@ Hopper kernels:
   :mod:`repro_torch.train.serve` (``BatchedServer``: prefill and
   continuous-batching decode) over :mod:`repro_torch.models`, with flash
   attention, flash decode, the RG-LRU scan and the RWKV6 WKV recurrence in
-  CUDA; its command line is ``python -m repro_torch.launch.serve``.
+  CUDA; its command line is ``python -m repro_torch.launch.serve``;
+* the model substrate's training path — :mod:`repro_torch.train`
+  (optimizer, data, checkpoints, the train step, the restartable loop)
+  with the same kernels forward and autograd of their plain versions
+  backward; its command line is ``python -m repro_torch.launch.train``.
 
 Device entry points run on ``"cuda"`` unless told ``"cpu"``
 (:mod:`repro_torch.device`).  The package imports ``torch``, numpy and

@@ -11,11 +11,24 @@ counted), so a run can show that its main path went through the kernels,
 and ``routes`` the launches of an entry point with more than one instance
 by the instance taken (for attention, the kernel instance: ``"wgmma<2>"``,
 ``"mma<1>"``, ...); :func:`reset_launches` zeroes both.
+
+Gradients.  ``flash_attention``, ``wkv6`` and ``linear_recurrence`` are
+differentiable, as the reference's ``custom_vjp`` wraps them
+(``src/repro/kernels/ops.py``): the forward is the kernel, the backward is
+autograd of the oracle (:mod:`repro_torch.kernels.ref`) recomputed from the
+saved inputs.  On a CUDA tensor with grad enabled the call is a
+``torch.autograd.Function`` whose forward launches the Hopper kernel
+(counted as every launch) and whose backward differentiates the plain
+version on the card; on the CPU autograd runs through the plain version
+itself, as the reference's ``"ref"`` backend.  The JAX package has no
+backward Pallas kernel, so none is owed here; hand-written backward
+kernels are later performance work (``ROADMAP.md``).  ``flash_decode``
+and the allocation kernels are forward-only, as in the reference.
 """
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -93,17 +106,53 @@ def node_usage(nodes: torch.Tensor, vals: torch.Tensor,
     return node_usage_plain(nodes, vals, n_nodes)
 
 
+def _differentiable(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _KernelOracle(torch.autograd.Function):
+    """Forward: ``kernel`` on contiguous inputs.  Backward: autograd of
+    ``oracle`` (the plain version) recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, kernel: Callable, oracle: Callable, *inputs):
+        ctx.oracle = oracle
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
+        return kernel(*(t.contiguous() for t in inputs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+            out = ctx.oracle(*xs)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        wanted = [x for x, n in zip(xs, needs) if n]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+        return (None, None) + tuple(next(got) if n else None for n in needs)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, scale: Optional[float] = None):
-    """GQA attention of a prompt (see ``kernels/flash_attention.py``)."""
+    """GQA attention of a prompt (see ``kernels/flash_attention.py``);
+    differentiable, its backward that of the plain version."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
     if _on_cuda(q):
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, scale=scale)
-        launches["flash_attention"] += 1
-        routes["flash_attention"][attention_instance(q, k, v)] += 1
-        return out
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, scale=scale)
+        def kernel(q_, k_, v_):
+            out = flash_attention_cuda(q_, k_, v_, **kw)
+            launches["flash_attention"] += 1
+            routes["flash_attention"][attention_instance(q_, k_, v_)] += 1
+            return out
+        if _differentiable(q, k, v):
+            return _KernelOracle.apply(
+                kernel, lambda *a: flash_attention_plain(*a, **kw), q, k, v)
+        return kernel(q, k, v)
+    return flash_attention_plain(q, k, v, **kw)
 
 
 def flash_decode(q, k_cache, v_cache, cur_len, *,
@@ -122,12 +171,18 @@ def linear_recurrence(a, b, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RG-LRU recurrence (see ``kernels/rglru_scan.py``).  Unlike the
     reference, which sends ``T == 1`` to its oracle, the card launches a
     kernel for every T, decode's single step included: the route
-    (``rglru_route``) is chunked for a prefill, sequential otherwise."""
+    (``rglru_route``) is chunked for a prefill, sequential otherwise.
+    Differentiable, its backward that of the plain version."""
     if _on_cuda(a):
-        out = rglru_scan_cuda(a, b, h0)
-        launches["rglru_scan"] += 1
-        routes["rglru_scan"][rglru_route(*a.shape)] += 1
-        return out
+        def kernel(a_, b_, h0_):
+            out = rglru_scan_cuda(a_, b_, h0_)
+            launches["rglru_scan"] += 1
+            routes["rglru_scan"][rglru_route(*a_.shape)] += 1
+            return out
+        if _differentiable(a, b, h0):
+            return _KernelOracle.apply(kernel, linear_recurrence_plain,
+                                       a, b, h0)
+        return kernel(a, b, h0)
     return linear_recurrence_plain(a, b, h0)
 
 
@@ -137,10 +192,18 @@ def wkv6(r, k, v, w, u, s0, *, state_out: Optional[torch.Tensor] = None
     to ``state_out`` when given (it may be ``s0``).  Unlike the reference,
     which sends ``T == 1`` to its oracle, the card launches a kernel for
     every T, decode's single step included: the route (``wkv6_route``) is
-    chunked for a prefill, sequential otherwise."""
+    chunked for a prefill, sequential otherwise.  Differentiable (with
+    ``state_out`` None), its backward that of the plain version."""
     if _on_cuda(r):
-        out = wkv6_cuda(r, k, v, w, u, s0, state_out=state_out)
-        launches["wkv6"] += 1
-        routes["wkv6"][wkv6_route(*r.shape, v.shape[-1])] += 1
-        return out
+        def kernel(r_, k_, v_, w_, u_, s0_):
+            out = wkv6_cuda(r_, k_, v_, w_, u_, s0_, state_out=state_out)
+            launches["wkv6"] += 1
+            routes["wkv6"][wkv6_route(*r_.shape, v_.shape[-1])] += 1
+            return out
+        if _differentiable(r, k, v, w, u, s0):
+            if state_out is not None:
+                raise ValueError("a differentiable wkv6 call takes no "
+                                 "state_out")
+            return _KernelOracle.apply(kernel, wkv6_plain, r, k, v, w, u, s0)
+        return kernel(r, k, v, w, u, s0)
     return wkv6_plain(r, k, v, w, u, s0, state_out=state_out)

@@ -1,29 +1,41 @@
-"""Model backbone of the serving path: parameter init, the layer loop,
+"""Model backbone: parameter init, the layer loop, the training loss,
 prefill and decode (a port of the JAX package's ``models/backbone.py``).
 
 The reference stacks consecutive identical layers and runs each group with
-``lax.scan``; PyTorch runs eagerly, so the port keeps one parameter dict
-per layer, in plan order (``config.layer_plan``), and loops over them.
-``repro_torch.models.convert`` unstacks the reference's groups into this
-layout.  Caches are a list of per-layer dicts in the same order.
+``lax.scan``; PyTorch runs eagerly and loops over the layers.  Parameters
+come in two layouts, and every function here takes either:
 
-Serving only: ``lm_loss``, the encoder, the vision frontend and MTP come
-with later slices (``ROADMAP.md``).
+* serving: ``params["layers"]``, one dict per layer in plan order
+  (``config.layer_plan``), as ``init_params`` makes them;
+* training: ``params["groups"]``, the reference's tree — one dict per
+  ``layer_groups`` entry, every leaf stacked with a leading ``count`` axis
+  (:func:`group_params`).  The optimizer decides weight decay and
+  factoring per stacked leaf, as the reference's does, so the training
+  state keeps this layout; the loop takes per-layer views of it, and
+  autograd gives the gradients on the stacked leaves.
+
+``repro_torch.models.convert`` carries the reference's tree into either
+layout.  Caches are a list of per-layer dicts in plan order.
+
+The encoder, the vision frontend, MTP and MoE come with later slices
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import blocks
 from .config import (ATTN, LOCAL_ATTN, MOE, RGLRU, RWKV6, BlockSpec,
-                     ModelConfig, layer_plan)
+                     ModelConfig, layer_groups, layer_plan)
 from .layers import norm, uinit
 
-__all__ = ["init_params", "init_cache", "slot_view", "forward",
-           "embed_tokens", "logits_fn", "prefill", "decode_step"]
+__all__ = ["init_params", "group_params", "layer_params", "init_cache",
+           "slot_view", "forward", "embed_tokens", "logits_fn", "lm_loss",
+           "prefill", "decode_step"]
 
 Params = Dict[str, Any]
 
@@ -71,6 +83,52 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["head"] = uinit(generator, (D, V), 0.02, dtype, device)
     return params
+
+
+def group_params(cfg: ModelConfig, params: Params) -> Params:
+    """The training layout of ``params``: the per-layer dicts stacked into
+    one dict per ``layer_groups`` entry, each leaf with a leading ``count``
+    axis (a group of one included), as the reference's tree."""
+    layers = params["layers"]
+    groups, i = [], 0
+    for _, count in layer_groups(cfg):
+        groups.append(_stack(layers[i:i + count]))
+        i += count
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["groups"] = groups
+    return out
+
+
+def _stack(dicts):
+    if isinstance(dicts[0], dict):
+        return {k: _stack([d[k] for d in dicts]) for k in dicts[0]}
+    return torch.stack(dicts)
+
+
+def _unstack(tree, count: int):
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(count)]
+    if tree.shape[0] != count:
+        raise ValueError(f"a group leaf has leading axis {tree.shape[0]}, "
+                         f"expected {count}")
+    return list(tree.unbind(0))
+
+
+def layer_params(cfg: ModelConfig, params: Params) -> List[Params]:
+    """One parameter dict per layer in plan order, from either layout (for
+    the training layout, views of the stacked leaves: one ``unbind`` a
+    leaf, so the backward stacks each leaf's gradient once)."""
+    if "layers" in params:
+        return params["layers"]
+    groups = layer_groups(cfg)
+    if len(params["groups"]) != len(groups):
+        raise ValueError(f"{len(params['groups'])} groups, the config has "
+                         f"{len(groups)}")
+    out: List[Params] = []
+    for (_, count), gp in zip(groups, params["groups"]):
+        out.extend(_unstack(gp, count))
+    return out
 
 
 # =========================================================================== #
@@ -138,13 +196,23 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, h, mode, cache, pos):
 
 
 def forward(cfg: ModelConfig, params: Params, h, mode: str, caches=None,
-            pos=0):
-    """Backbone over input embeddings h (B, T, D).  Returns (h, caches):
-    the caches, when given, are written in place.  (The reference also
-    returns the MoE auxiliary loss, which a dense stack does not have.)"""
-    for i, spec in enumerate(layer_plan(cfg)):
+            pos=0, remat: bool = False):
+    """Backbone over input embeddings h (B, T, D), ``mode`` "train",
+    "prefill" or "decode".  Returns (h, caches): the caches, when given,
+    are written in place.  (The reference also returns the MoE auxiliary
+    loss, which a dense stack does not have.)  ``remat`` recomputes each
+    layer in the backward instead of keeping its activations
+    (``torch.utils.checkpoint``, one call a layer, as the reference's
+    ``jax.checkpoint`` of a layer)."""
+    remat = remat and torch.is_grad_enabled()
+    for i, (spec, p) in enumerate(zip(layer_plan(cfg),
+                                      layer_params(cfg, params))):
         cache = caches[i]["mix"] if caches is not None else None
-        h = _apply_block(cfg, spec, params["layers"][i], h, mode, cache, pos)
+        if remat:
+            h = checkpoint(_apply_block, cfg, spec, p, h, mode, cache, pos,
+                           use_reentrant=False)
+        else:
+            h = _apply_block(cfg, spec, p, h, mode, cache, pos)
     h = norm(h, params["final_norm"], cfg.norm_kind, cfg.norm_eps)
     return h, caches
 
@@ -156,6 +224,36 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens):
 def logits_fn(cfg: ModelConfig, params: Params, h):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return h @ w
+
+
+# =========================================================================== #
+# losses                                                                       #
+# =========================================================================== #
+def _xent(logits, labels, mask=None):
+    """Mean next-token cross-entropy in fp32.  logits: (B, T, V); labels:
+    (B, T) integer; mask: (B, T) weights, or None."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def lm_loss(cfg: ModelConfig, params: Params, batch, remat: bool = True):
+    """Causal-LM training loss: ``batch["tokens"]`` (B, T) integer.
+    Returns ``(loss, {"xent", "aux"})``, ``aux`` a 0-d fp32 zero (the MoE
+    auxiliary loss, which the ported families do not have)."""
+    _check_served(cfg)
+    tokens = batch["tokens"]
+    h = embed_tokens(cfg, params, tokens)
+    h, _ = forward(cfg, params, h, "train", remat=remat)
+    logits = logits_fn(cfg, params, h[:, :-1])
+    loss = _xent(logits, tokens[:, 1:])
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    metrics = {"xent": loss, "aux": aux}
+    return loss + aux, metrics
 
 
 # =========================================================================== #

@@ -2,11 +2,12 @@
 
 The reference's ``backbone.init_params`` returns a tree with ``embed``,
 ``head``, ``final_norm`` and ``groups``: one dict per ``layer_groups``
-entry, every leaf stacked with a leading ``count`` axis.  The port keeps
-one dict per layer in plan order (``repro_torch.models.backbone``).
+entry, every leaf stacked with a leading ``count`` axis.  The port serves
+from one dict per layer in plan order (``repro_torch.models.backbone``):
 :func:`params_from_reference` unstacks the groups into that layout.  It
-takes numpy arrays (call ``np.asarray`` on the reference's leaves first)
-and imports nothing of JAX.
+trains on the reference's own layout: :func:`grouped_params_from_reference`
+carries the tree across as it is.  Both take numpy arrays (call
+``np.asarray`` on the reference's leaves first) and import nothing of JAX.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from ..device import resolve_device
 from .config import ModelConfig, layer_groups
 
-__all__ = ["params_from_reference"]
+__all__ = ["params_from_reference", "grouped_params_from_reference"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -34,6 +35,8 @@ def _tensor(a, device) -> torch.Tensor:
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -63,3 +66,18 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
     if "head" in tree:
         out["head"] = _tensor(tree["head"], device)
     return out
+
+
+def grouped_params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
+                                  device="cuda"):
+    """The reference's ``init_params`` tree (as numpy arrays) in the
+    port's training layout (``backbone.group_params``): the same tree, the
+    groups stacked as they are, in the reference's dtypes, on ``device``."""
+    device = resolve_device(device)
+    groups = layer_groups(cfg)
+    if len(tree["groups"]) != len(groups):
+        raise ValueError(f"the tree has {len(tree['groups'])} groups, the "
+                         f"config {len(groups)}")
+    keys = ("embed", "groups", "final_norm", "head")
+    return {k: _map(lambda a: _tensor(a, device), tree[k])
+            for k in keys if k in tree}

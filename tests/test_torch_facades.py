@@ -3,11 +3,11 @@ reference's package facades resolves on the port's counterpart.
 
 One case per (package, name): the ``__all__`` of ``repro.core``,
 ``repro.sched``, ``repro.workloads``, ``repro.api``, ``repro.kernels`` and
-``repro`` itself, and the public definitions of ``repro.configs`` (which
-has no ``__all__``).  The one name still to come is ``repro.kernels.ref``,
-the kernels' pure-jnp oracles, which comes with the training path: its
-case asserts that it is absent.  Where the reference keeps an order, the
-port's ``__all__`` lists the reference's names in it.
+``repro`` itself, and the public definitions of ``repro.configs`` and
+``repro.train`` (which have no ``__all__``).  ``LATER`` lists the names
+still to come, whose cases assert that they are absent; it is empty since
+the training path brought ``repro.kernels.ref``.  Where the reference
+keeps an order, the port's ``__all__`` lists the reference's names in it.
 """
 import importlib
 import importlib.util
@@ -15,10 +15,10 @@ import types
 
 import pytest
 
-PACKAGES = ("core", "sched", "workloads", "configs", "api", "kernels", "")
+PACKAGES = ("core", "sched", "workloads", "configs", "api", "kernels",
+            "train", "")
 #: (package, name) of the reference's surface that a later slice ports
-LATER = {("kernels", "ref"): "the kernels' jnp oracles come with the "
-                             "training path (ROADMAP.md)"}
+LATER = {}
 
 
 def _module(root, pkg):
