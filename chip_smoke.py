@@ -137,9 +137,15 @@ fails ends the run with exit code 1:
                sides of the threshold, a ragged dk != dv, T short of a
                chunk and ragged against it and its sub-chunks, decays down
                to 1e-3 and to 1e-6 over 2,000 steps, the state written in
-               place on each route) (fp32 2e-5, bf16 2e-2, the RG-LRU atol
-               1e-5 / rtol 1e-4, the WKV atol = rtol = 1e-4: the
-               reference's kernel tolerances);
+               place on each route); and at the MoE family's shapes, fp32
+               and bf16, each timed beside SDPA (its backend named):
+               DeepSeek-V3's MLA prefill (1,024 tokens, 128 heads, qk head
+               dim 192 over v head dim 128, scale 1/sqrt(192): wgmma<2>),
+               Qwen1.5-MoE's prefill (1,540 tokens, 16 over 16 heads of
+               128: wgmma<2>) and decode (4 x 4,096 slots, a group of one:
+               mma<1>, lengths 0, S - 1 and past S) (fp32 2e-5, bf16 2e-2,
+               the RG-LRU atol 1e-5 / rtol 1e-4, the WKV atol = rtol =
+               1e-4: the reference's kernel tolerances);
 6. model check — per arch at full width, cut in depth, fp32, seeded
                weights drawn on the card and copied to the host:
                RecurrentGemma-2B one super-block deep (RG-LRU, RG-LRU,
@@ -149,21 +155,44 @@ fails ends the run with exit code 1:
                an fp32 cache, once with the int8 KV layout on both sides),
                Qwen3-8B (qk_norm), SmolLM-360M (15 query heads over 5, head
                dim 64, tied embeddings) and Granite-3-2B (tied embeddings,
-               a 49,155 vocabulary); then 8 decode steps, on the card
-               (kernels) and on the host CPU (plain versions), logits
+               a 49,155 vocabulary); the MoE family 2 layers deep, prefill
+               of 512 tokens: Qwen1.5-MoE-A2.7B (60 experts top-4, 4
+               gated shared ones) and DeepSeek-V3 (both layers MLA with
+               the dense MLP, its MTP depth left out); then 8 decode steps
+               (DeepSeek-V3's through the absorbed latent decode), on the
+               card (kernels) and on the host CPU (plain versions), logits
                compared (atol = rtol = 2e-3) and greedy tokens counted;
-7. serve     — per arch at full width and depth (bf16 weights and cache)
-               through ``BatchedServer``, 4 slots, cache 4096, 8 requests
-               of 1,024-2,000 prompt tokens: RecurrentGemma-2B (26 layers)
-               with 96 new tokens each, so that decode wraps the 2,048
-               ring; RWKV6-7B (32 layers) with 64; Llama-3-8B (32 layers,
-               32 query heads over 8, head dim 128) with 64; every request
+               where the cut has MoE layers, both sides' top-k experts per
+               token and layer are recorded and compared: the flips at the
+               first call with any must be near-ties (the host's k-th and
+               (k+1)-th router probabilities within 1e-6), and the logits
+               must agree at every step before it (the count of flips,
+               their layers and the smallest host margin are reported);
+7. serve     — per arch at full width (bf16 weights and cache) through
+               ``BatchedServer``, 4 slots, cache 4096, 8 requests of
+               1,024-2,000 prompt tokens, cut in depth for the script's
+               time limit: RecurrentGemma-2B (13 of its 26 layers) with 96
+               new tokens each, so that decode wraps the 2,048 ring;
+               RWKV6-7B (16 of 32 layers) with 64; Llama-3-8B (16 of 32
+               layers, 32 query heads over 8, head dim 128) with 64;
+               Qwen1.5-MoE-A2.7B at full depth (24 layers, 60 routed
+               experts top-4 and 4
+               gated shared ones, 16 heads over 16), one wave of 4
+               requests of 64 new tokens; DeepSeek-V3 cut to 4 layers (the
+               3 dense MLA layers and one MoE layer of 256 experts top-8
+               and a shared one; no MTP depth), one wave of 4 requests of
+               16 new tokens (both cut in requests for the script's time
+               limit); each MoE serve also gives
+               the weight bytes a decode step reads (every expert, as the
+               dispatch multiplies all E experts' buffers) and a token's
+               active bytes, each over 3.35 TB/s; every request
                must finish with finite logits, and the launch counts and
                instances, zeroed just before and read just after, must
                show every kernel of the arch, each launch on its instance:
                prefill attention on ``attn_wgmma_kernel<NVP>`` (NVP 4 for
-               RecurrentGemma-2B's head dim 256, 2 for Llama-3-8B's 128),
-               decode attention on ``decode_mma_kernel<TQ, 1>``, every
+               RecurrentGemma-2B's head dim 256, 2 for Llama-3-8B's,
+               Qwen1.5-MoE's and MLA's v head dim of 128), decode
+               attention on ``decode_mma_kernel<TQ, 1>``, every
                prefill launch of the RG-LRU scan and of the WKV recurrence
                on the chunked route and every decode launch on the
                sequential one; then the serve's last wave
@@ -185,8 +214,10 @@ fails ends the run with exit code 1:
                entries also name the instance that ran (its route, the
                ptxas registers and spills of its functions) and split
                their device time by kernel name, at RecurrentGemma-2B's
-               served shapes and, under ``llama3_8b``, at Llama-3-8B's
-               (its launches and instances beside them); the RG-LRU scan
+               served shapes and, under ``llama3_8b``,
+               ``qwen2_moe_a2_7b`` and ``deepseek_v3_671b`` (prefill
+               only), at those archs' (their launches and instances beside
+               them, SDPA's backend named); the RG-LRU scan
                and the
                WKV recurrence have an entry per route (decode on the
                sequential route, the median served prompt on the chunked
@@ -2003,6 +2034,7 @@ def phase_slice_serve(torch, np, seed0):
 # the serving path (RecurrentGemma-2B, RWKV6-7B, the dense decoders)           #
 # --------------------------------------------------------------------------- #
 RG, RWKV, LLAMA = "recurrentgemma-2b", "rwkv6-7b", "llama3-8b"
+QWEN_MOE, DEEPSEEK = "qwen2-moe-a2.7b", "deepseek-v3-671b"
 # the instance each kernel must take in a served prefill and decode
 # (ops.routes): bf16 attention on the tensor cores, attn_wgmma_kernel<NVP>
 # with NVP = hdv / 64 and decode_mma_kernel<TQ, 1> for groups up to 16; the
@@ -2010,7 +2042,9 @@ RG, RWKV, LLAMA = "recurrentgemma-2b", "rwkv6-7b", "llama3-8b"
 _RECURRENT_ROUTES = {"prefill": "chunked", "decode": "sequential"}
 # per arch: the kernels its path launches and their instances, the model
 # check's depth, prompt and weight seed (and its cache types), the serve's
-# new tokens a request and its seed
+# new tokens a request and its seed, and the serve's cuts for the script's
+# time limit: RecurrentGemma-2B, RWKV6-7B and Llama-3-8B at half depth
+# (their full-depth serves are in PERF.md), the MoE family in requests
 SERVE_ARCHS = {
     RG: {"kernels": ("flash_attention", "flash_decode", "rglru_scan"),
          "routes": {"flash_attention": {"prefill": "wgmma<4>"},
@@ -2018,10 +2052,10 @@ SERVE_ARCHS = {
                     "rglru_scan": _RECURRENT_ROUTES},
          "check_layers": 3, "check_prompt": 2100, "check_seed": 2402,
          # three of seed 60's eight prompts decode past the 2,048 window
-         "max_new": 96, "seed": 60},
+         "max_new": 96, "seed": 60, "serve_layers": 13},
     RWKV: {"kernels": ("wkv6",), "routes": {"wkv6": _RECURRENT_ROUTES},
            "check_layers": 2, "check_prompt": 1000, "check_seed": 2404,
-           "max_new": 64, "seed": 64},
+           "max_new": 64, "seed": 64, "serve_layers": 16},
     # full causal GQA (32 query heads over 8, head dim 128) over a cache
     # that is not a ring; its model check runs again on an int8 cache
     LLAMA: {"kernels": ("flash_attention", "flash_decode"),
@@ -2029,7 +2063,27 @@ SERVE_ARCHS = {
                        "flash_decode": {"decode": "mma<1>"}},
             "check_layers": 2, "check_prompt": 512, "check_seed": 2407,
             "check_caches": ("float32", "int8"),
-            "max_new": 64, "seed": 80},
+            "max_new": 64, "seed": 80, "serve_layers": 16},
+    # multi-head (16 query heads over 16, head dim 128: a decode group of
+    # one), 60 routed experts top-4 and 4 gated shared ones in every layer;
+    # at full width and depth, one wave of 4 requests (the script's time
+    # limit)
+    QWEN_MOE: {"kernels": ("flash_attention", "flash_decode"),
+               "routes": {"flash_attention": {"prefill": "wgmma<2>"},
+                          "flash_decode": {"decode": "mma<1>"}},
+               "check_layers": 2, "check_prompt": 512, "check_seed": 2413,
+               "requests": 4, "max_new": 64, "seed": 90},
+    # MLA: prefill attention at qk head dim 192 over v head dim 128 (its
+    # decode is latent einsums, no kernel); cut to 4 layers (the 3 dense
+    # ones and a MoE layer of 256 experts top-8), one wave of 4 requests of
+    # 16 new tokens; the MTP depth, a training head that serving never
+    # runs, left out
+    DEEPSEEK: {"kernels": ("flash_attention",),
+               "routes": {"flash_attention": {"prefill": "wgmma<2>"}},
+               "cut": {"mtp": False},
+               "check_layers": 2, "check_prompt": 512, "check_seed": 2414,
+               "serve_layers": 4, "requests": 4, "max_new": 16,
+               "seed": 91},
 }
 # the other dense decoders: model checks only (full width, 2 layers), for
 # qk_norm (Qwen3-8B), a group of 3 at head dim 64 (SmolLM-360M) and tied
@@ -2040,12 +2094,16 @@ CHECK_ARCHS = {"qwen3-8b": dict(_DENSE_CHECK, check_seed=2505),
                "smollm-360m": dict(_DENSE_CHECK, check_seed=2406),
                "granite-3-2b": dict(_DENSE_CHECK, check_seed=2410)}
 # the block kinds of the layers that call each kernel (models/config.py)
-_KINDS = {"flash_attention": ("attn", "local"), "flash_decode": ("attn", "local"),
+_KINDS = {"flash_attention": ("attn", "local", "mla"),
+          "flash_decode": ("attn", "local"),
           "rglru_scan": ("rglru",), "wkv6": ("rwkv6",)}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # the reference's kernel tests
 RGLRU_ATOL, RGLRU_RTOL = 1e-5, 1e-4
 WKV_TOL = 1e-4                                 # atol = rtol
 MODEL_TOL = 2e-3                               # the reference's model tests
+# a routing flip between card and host passes only on a near-tie: the
+# host's k-th and (k+1)-th router probabilities closer than this
+FLIP_MARGIN = 1e-6
 CHECK_STEPS, CHECK_CACHE = 8, 4096
 SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS = 4, 4096, 8
 
@@ -2107,35 +2165,84 @@ def attention_pairs(Tq, Tk, causal, window, q_offset=0):
     return total
 
 
-def prefill_check(torch, gen, dt, case):
-    """One flash attention case against the plain version, with its route.
-    case: (label, B, Tq, Tk, H, Hkv, hd, hdv, causal, window, q_offset)."""
+def sdpa_backend(torch, *args, **kw):
+    """The backend SDPA's dispatcher picks for these arguments (its
+    chooser, ``torch._fused_sdp_choice``), and the backends that accept
+    them when forced one at a time: what ran as the library call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    chooser = getattr(torch, "_fused_sdp_choice", None)
+    try:
+        picked = SDPBackend(chooser(*args, **kw)).name if chooser else None
+    except (RuntimeError, TypeError, ValueError) as exc:
+        picked = f"unknown ({type(exc).__name__})"
+    accepting = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                F.scaled_dot_product_attention(*args, **kw)
+            accepting.append(b.name)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    return {"library_backend": picked, "library_backends_accepting":
+            accepting}
+
+
+def prefill_check(torch, gen, dt, case, scale=None, timed=False):
+    """One flash attention case against the plain version, with its route
+    and instance; ``timed``: also device ms of the kernel and of SDPA on
+    the same inputs, with SDPA's backend.  case: (label, B, Tq, Tk, H,
+    Hkv, hd, hdv, causal, window, q_offset)."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention import (
-        attention_route, flash_attention_cuda, flash_attention_plain)
+        attention_instance, attention_route, flash_attention_cuda,
+        flash_attention_plain)
     label, B, Tq, Tk, H, Hkv, hd, hdv, causal, window, off = case
     name = _dtype_name(torch, dt)
     q = _randn(torch, gen, (B, Tq, H, hd), dt)
     k = _randn(torch, gen, (B, Tk, Hkv, hd), dt)
     v = _randn(torch, gen, (B, Tk, Hkv, hdv), dt)
-    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                               q_offset=off)
-    want = flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 q_offset=off)
+    kw = dict(causal=causal, window=window, q_offset=off, scale=scale)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    return {"kernel": "flash_attention", "case": label, "dtype": name,
-            "route": attention_route(q, k, v),
-            "shape": [B, Tq, Tk, H, Hkv, hd, hdv], "causal": causal,
-            "window": window, "q_offset": off, "max_abs_err": _err(got, want),
-            "ok": got.dtype == dt and _within(torch, got, want, TOL[name],
-                                              TOL[name])}
+    out = {"kernel": "flash_attention", "case": label, "dtype": name,
+           "route": attention_route(q, k, v),
+           "instance": attention_instance(q, k, v),
+           "shape": [B, Tq, Tk, H, Hkv, hd, hdv], "causal": causal,
+           "window": window, "q_offset": off, "scale": scale,
+           "max_abs_err": _err(got, want),
+           "ok": got.dtype == dt and _within(torch, got, want, TOL[name],
+                                             TOL[name])}
+    if timed:                  # causal, no window, no offset: SDPA's case
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_kw = dict(is_causal=causal, scale=scale, enable_gqa=H != Hkv)
+        out.update(
+            ms=device_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw),
+                         20),
+            library="F.scaled_dot_product_attention",
+            **sdpa_backend(torch, qt, kt, vt, **sdpa_kw))
+        out["library_ms"] = (device_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          **sdpa_kw), 20)
+            if out["library_backends_accepting"] else None)
+    return out
 
 
-def decode_check(torch, gen, dt, case):
-    """One flash decode case against the plain version, with its route.
+def decode_check(torch, gen, dt, case, timed=False):
+    """One flash decode case against the plain version, with its route
+    and instance; ``timed``: also device ms of the kernel and of SDPA (the
+    valid slots as a mask) on the same inputs, with SDPA's backend.
     case: (label, B, S, H, Hkv, hd, hdv, q dtype, lengths); the cache has
     type ``dt``."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention import (
-        decode_route, flash_decode_cuda, flash_decode_plain)
+        decode_instance, decode_route, flash_decode_cuda, flash_decode_plain)
     label, B, S, H, Hkv, hd, hdv, qdt, lens = case
     name = _dtype_name(torch, dt)
     q = _randn(torch, gen, (B, H, hd), qdt)
@@ -2146,12 +2253,29 @@ def decode_check(torch, gen, dt, case):
     want = flash_decode_plain(q, k, v, cur)
     torch.cuda.synchronize()
     tol = TOL[name]
-    return {"kernel": "flash_decode", "case": label,
-            "dtype": [_dtype_name(torch, qdt), name],
-            "route": decode_route(q, k, v),
-            "shape": [B, S, H, Hkv, hd, hdv], "lens": lens,
-            "max_abs_err": _err(got, want),
-            "ok": got.dtype == qdt and _within(torch, got, want, tol, tol)}
+    out = {"kernel": "flash_decode", "case": label,
+           "dtype": [_dtype_name(torch, qdt), name],
+           "route": decode_route(q, k, v),
+           "instance": decode_instance(q, k, v),
+           "shape": [B, S, H, Hkv, hd, hdv], "lens": lens,
+           "max_abs_err": _err(got, want),
+           "ok": got.dtype == qdt and _within(torch, got, want, tol, tol)}
+    if timed and qdt == dt:
+        valid = torch.clamp(cur + 1, max=S)
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < valid[:, None])[:, None, None, :]
+        qd, kd, vd = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        sdpa_kw = dict(attn_mask=mask, enable_gqa=H != Hkv)
+        out.update(
+            ms=device_ms(torch, lambda: flash_decode_cuda(q, k, v, cur),
+                         200),
+            library="F.scaled_dot_product_attention",
+            **sdpa_backend(torch, qd, kd, vd, **sdpa_kw))
+        out["library_ms"] = (device_ms(
+            torch, lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                          **sdpa_kw), 200)
+            if out["library_backends_accepting"] else None)
+    return out
 
 
 def phase_serve_kernels(torch):
@@ -2222,6 +2346,31 @@ def phase_serve_kernels(torch):
             ("smollm_360m_g3", 4, 2048, 15, 5, 64, 64, bf,
              [0, 1000, 2047, 3000])]:
         checks.append(decode_check(torch, gen, bf, case))
+    # the MoE family's shapes, fp32 and bf16 (bf16 on the instances its
+    # serves take), each timed beside SDPA: DeepSeek-V3's MLA prefill (qk
+    # head dim 192 over v head dim 128, scale 1/sqrt(192): wgmma<2> with
+    # three Q/K panels against two V panels), Qwen1.5-MoE's prefill (16
+    # over 16 at head dim 128: wgmma<2>) and its decode (a group of one:
+    # mma<1>, 15 of a tile's 16 rows masked; lengths 0, S - 1 and past S)
+    for dt in (torch.float32, bf):
+        checks.append(prefill_check(
+            torch, gen, dt, ("mla_hd192_hdv128", 1, 1024, 1024, 128, 128,
+                             192, 128, True, 0, 0),
+            scale=1.0 / 192 ** 0.5, timed=True))
+        checks.append(prefill_check(
+            torch, gen, dt, ("qwen2_moe_prefill", 1, 1540, 1540, 16, 16, 128,
+                             128, True, 0, 0), timed=True))
+        checks.append(decode_check(
+            torch, gen, dt, ("qwen2_moe_decode_g1", 4, 4096, 16, 16, 128,
+                             128, dt, [0, 1537, 4095, 5000]), timed=True))
+    want = {("mla_hd192_hdv128", "bfloat16"): "wgmma<2>",
+            ("qwen2_moe_prefill", "bfloat16"): "wgmma<2>",
+            ("qwen2_moe_decode_g1", "bfloat16"): "mma<1>"}
+    for c in checks:
+        dt_name = c["dtype"] if c["kernel"] == "flash_attention" \
+            else c["dtype"][1]
+        if (c.get("case"), dt_name) in want:
+            c["ok"] = c["ok"] and c["instance"] == want[(c["case"], dt_name)]
     # (B, T, W, route: None for the one rglru_route picks)
     rt = rglru.CHUNKED_MIN_T
     for B, T, W, route in [
@@ -2315,14 +2464,22 @@ def phase_model_check(torch, np, arch, spec):
     card (kernels) and on the host CPU (plain versions), the host's greedy
     picks fed to both, logits compared; once a cache type of
     ``check_caches`` (an int8 cache: the quantized KV layout on both
-    sides), one line each."""
+    sides), one line each.  ``spec["cut"]`` changes more of the config
+    (DeepSeek-V3: no MTP depth).  Where the cut has MoE layers, each
+    side's routing is recorded (:class:`routing_recorder`) and compared
+    (:func:`routing_report`): a routing flip passes only on a near-tie of
+    the host, and the logits are held to the tolerance at every step
+    before the first flip."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import backbone
+    from repro_torch.models.config import MOE, layer_plan
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=spec["check_layers"])
+    cfg = dataclasses.replace(get_config(arch), n_layers=spec["check_layers"],
+                              **spec.get("cut", {}))
+    n_moe = sum(b.mlp == MOE for b in layer_plan(cfg))
     n_prompt = spec["check_prompt"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(spec["check_seed"])
@@ -2337,37 +2494,48 @@ def phase_model_check(torch, np, arch, spec):
     def run(params, device, cache_dtype, feed=None):
         """Prefill, then decode the tokens of ``feed`` (when None, the run's
         own greedy picks).  Returns the logits of every step on the host,
-        the tokens fed and the seconds taken."""
+        the tokens fed, the seconds taken and the routing of each MoE
+        call."""
         caches = backbone.init_cache(cfg, 1, CHECK_CACHE, dtype=cache_dtype,
                                      device=device)
-        t = time.perf_counter()
-        logits, caches = backbone.prefill(
-            cfg, params, {"tokens": prompt.to(device)}, caches)
-        out, fed = [logits.float().cpu()], []
-        for i in range(CHECK_STEPS):
-            tok = feed[i] if feed is not None else torch.argmax(out[-1], -1)
-            fed.append(tok)
-            logits, caches = backbone.decode_step(
-                cfg, params, tok.to(device), caches, n_prompt + i)
-            out.append(logits.float().cpu())
-        return out, fed, time.perf_counter() - t
+        with routing_recorder(torch) as routing:
+            t = time.perf_counter()
+            logits, caches = backbone.prefill(
+                cfg, params, {"tokens": prompt.to(device)}, caches)
+            out, fed = [logits.float().cpu()], []
+            for i in range(CHECK_STEPS):
+                tok = (feed[i] if feed is not None
+                       else torch.argmax(out[-1], -1))
+                fed.append(tok)
+                logits, caches = backbone.decode_step(
+                    cfg, params, tok.to(device), caches, n_prompt + i)
+                out.append(logits.float().cpu())
+            seconds = time.perf_counter() - t
+        return out, fed, seconds, routing
 
     for cache_name in spec.get("check_caches", ("float32",)):
         cache_dtype = cache_types[cache_name]
-        host_logits, feed, host_s = run(host, "cpu", cache_dtype)
+        host_logits, feed, host_s, host_routing = run(host, "cpu",
+                                                      cache_dtype)
         ops.reset_launches()
-        card_logits, _, card_s = run(card, "cuda", cache_dtype, feed)
+        card_logits, _, card_s, card_routing = run(card, "cuda", cache_dtype,
+                                                   feed)
         launches = {k: ops.launches[k] for k in spec["kernels"]}
         routes = {k: dict(ops.routes[k]) for k in spec["kernels"]}
         diffs = [float((c - h).abs().max())
                  for c, h in zip(card_logits, host_logits)]
+        routing = routing_report(host_routing, card_routing, n_moe)
+        # every step when the routing agrees throughout, else every step
+        # before the first flip (the caches carry it into the later ones)
+        held = routing["first_flip_step"] if routing["flips"] else None
         within = all(bool(((c - h).abs() <= MODEL_TOL + MODEL_TOL
                            * h.abs()).all())
-                     for c, h in zip(card_logits, host_logits))
+                     for c, h in zip(card_logits[:held], host_logits[:held]))
         agree = sum(int(torch.argmax(c)) == int(torch.argmax(h))
                     for c, h in zip(card_logits, host_logits))
         finite = all(bool(torch.isfinite(c).all()) for c in card_logits)
-        ok = within and finite and all(v > 0 for v in launches.values())
+        ok = (within and finite and routing["ok"]
+              and all(v > 0 for v in launches.values()))
         emit({"phase": "model check", "ok": ok, "arch": arch,
               "layers": cfg.n_layers, "d_model": cfg.d_model,
               "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
@@ -2379,13 +2547,80 @@ def phase_model_check(torch, np, arch, spec):
               "tolerance": {"atol": MODEL_TOL, "rtol": MODEL_TOL},
               "max_abs_logit_diff": diffs, "greedy_agree": agree,
               "greedy_total": len(card_logits), "launches": launches,
-              "routes": routes,
+              "routes": routes, "moe_layers": n_moe,
+              "experts": [cfg.n_experts, cfg.top_k, cfg.capacity_factor],
+              "routing": routing,
+              "params": sum(t.numel() for t in _leaves(card)),
               "init_s": init_s, "host_s": host_s, "card_s": card_s})
         if not ok:
             raise PhaseFailed(f"the card's logits disagree with the host's "
                               f"({arch}, {cache_name} cache)")
     del host, card
     torch.cuda.empty_cache()
+
+
+class routing_recorder:
+    """Within its block, ``repro_torch.models.moe.moe_apply`` (the backbone
+    calls it through the module) records each call's routing before it
+    runs: every token's top-k experts, sorted, and the margin between its
+    k-th and (k+1)-th router probabilities, on the host.  The router runs
+    once more for this, the same operations on the same inputs."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.calls = torch, moe, []
+
+    def __enter__(self):
+        torch, moe, calls = self.torch, self.moe, self.calls
+        self.apply = apply = moe.moe_apply
+
+        def recorded(cfg, p, x):
+            _, _, probs = moe.router_probs(cfg, p, x)
+            k = cfg.top_k
+            top = torch.topk(probs, k + 1, dim=-1)
+            calls.append((top.indices[:, :k].sort(dim=-1).values.cpu(),
+                          (top.values[:, k - 1] - top.values[:, k]).cpu()))
+            return apply(cfg, p, x)
+        moe.moe_apply = recorded
+        return calls
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.apply
+
+
+def routing_report(host, card, n_moe):
+    """Both sides' routing (:class:`routing_recorder`), call by call in
+    order (a step's MoE layers, step after step; the prefill is step 0):
+    the assignments that differ, by layer, and the host's margin at each.
+    Flips at the first call that has any arise from near-ties only (that
+    call's inputs agree within the check's tolerance), so they pass when
+    the host's margin is below FLIP_MARGIN at every one; later ones follow
+    from them (an expert changed, capacity taken from another token, the
+    caches written) and are reported."""
+    flips, margins, by_layer, first = 0, [], [0] * n_moe, None
+    for i, ((h_idx, h_margin), (c_idx, _)) in enumerate(zip(host, card)):
+        bad = (h_idx != c_idx).any(-1)
+        n = int(bad.sum())
+        if not n:
+            continue
+        flips += n
+        by_layer[i % n_moe] += n
+        margins += h_margin[bad].tolist()
+        if first is None:
+            first = {"call": i, "step": i // n_moe, "layer": i % n_moe,
+                     "tokens": n, "host_margins": h_margin[bad].tolist()}
+    ok = len(host) == len(card) and (
+        first is None or max(first["host_margins"]) < FLIP_MARGIN)
+    return {"ok": ok, "calls": len(host),
+            "assignments": sum(int(h[0].shape[0]) for h in host),
+            "flips": flips, "flips_by_layer": by_layer,
+            "first_flip_step": first["step"] if first else None,
+            "first_flip": first,
+            "smallest_host_margin_of_flips": min(margins) if margins
+            else None,
+            "smallest_host_margin": min(
+                (float(h[1].min()) for h in host), default=None),
+            "flip_margin": FLIP_MARGIN}
 
 
 def _tree_map(fn, tree):
@@ -2443,7 +2678,11 @@ def phase_serve(torch, np, arch):
 
     spec = SERVE_ARCHS[arch]
     seed, max_new = spec["seed"], spec["max_new"]
+    n_requests = spec.get("requests", SERVE_REQUESTS)
     cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=spec.get("serve_layers",
+                                                     cfg.n_layers),
+                              **spec.get("cut", {}))
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -2456,7 +2695,7 @@ def phase_serve(torch, np, arch):
     srv = TimedServer(cfg, params, ServeConfig(
         slots=SERVE_SLOTS, cache_len=SERVE_CACHE, seed=seed), device="cuda")
     rng = np.random.default_rng(seed)
-    lens = rng.integers(1024, 2001, SERVE_REQUESTS)
+    lens = rng.integers(1024, 2001, n_requests)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
                     max_new=max_new) for i, n in enumerate(lens)]
     for r in reqs:
@@ -2522,9 +2761,10 @@ def phase_serve(torch, np, arch):
           "layers": cfg.n_layers, "params": sum(
               t.numel() for t in _leaves(params)),
           "param_count": cfg.param_count(),
+          **moe_read_fields(cfg, params),
           "dtype": "bfloat16", "cache_dtype": "bfloat16",
           "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
-          "requests": SERVE_REQUESTS, "max_new": max_new, "seed": seed,
+          "requests": n_requests, "max_new": max_new, "seed": seed,
           "prompt_lens": lens.tolist(), "requests_past_window": wrapped,
           "all_finished": finished, "logits_finite": srv.finite,
           "wall_s": wall, "steps": steps, "decode_tokens": decode_tokens,
@@ -2549,6 +2789,34 @@ def phase_serve(torch, np, arch):
     del srv, params
     torch.cuda.empty_cache()
     return launches, lens, routes
+
+
+def moe_read_fields(cfg, params):
+    """For an MoE config, the weight bytes a decode step reads and its
+    bound: the sort-based dispatch multiplies the buffers of all E experts
+    every step, so a step reads every expert (all the weights); beside it,
+    the bytes of the parameters one token activates (its top-k experts of
+    each MoE layer, the rest in full).  Empty for a dense config."""
+    from repro_torch.models.config import MOE, layer_plan
+    from repro_torch.models.moe import capacity
+
+    if not cfg.n_experts:
+        return {}
+    plan = layer_plan(cfg)
+    moe_bytes = sum(t.numel() * t.element_size()
+                    for spec, layer in zip(plan, params["layers"])
+                    if spec.mlp == MOE
+                    for k, t in layer["mlp"].items()
+                    if k in ("wg", "wu", "wd"))
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    experts = cfg.n_experts + cfg.n_experts_pad
+    active = total - moe_bytes * (experts - cfg.top_k) // experts
+    return {"moe_layers": sum(b.mlp == MOE for b in plan),
+            "expert_bytes": moe_bytes, "step_read_bytes": total,
+            "step_read_bound_ms": total / HBM_BYTES_PER_S * 1e3,
+            "active_weight_bytes": active,
+            "active_read_bound_ms": active / HBM_BYTES_PER_S * 1e3,
+            "decode_capacity": capacity(cfg, SERVE_SLOTS)}
 
 
 def attention_instances(functions, route, q, v_or_cache, G, decode,
@@ -2579,8 +2847,12 @@ def attention_fields(torch, np, arch, launches, prompt_lens, functions,
     median served prompt under the arch's window, if any, and one decode
     step of the four slots at mid-run positions (the first four prompts
     plus half the new tokens) over a layer's cache (the window, or
-    SERVE_CACHE slots).  Each against its plain version and SDPA, timed
-    with both, beside its bound.  Returns the fields of the two entries."""
+    SERVE_CACHE slots).  Each against its plain version and SDPA (the
+    backend it took named), timed with both, beside its bound.  An MLA
+    arch calls prefill attention with per-head keys of qk_nope + qk_rope
+    and values of v_head_dim, scaled by 1/sqrt(qk head dim), and decodes
+    with no kernel.  Returns the fields of the two entries (the decode's
+    None for MLA)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -2589,58 +2861,66 @@ def attention_fields(torch, np, arch, launches, prompt_lens, functions,
         flash_attention_plain, flash_decode_cuda, flash_decode_plain)
 
     cfg = get_config(arch)
-    H, Hkv, hd, win = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    H, Hkv, hd, hdv, win = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                            cfg.head_dim, cfg.window)
+    scale = None
+    if cfg.mla:
+        Hkv, hd, hdv = H, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, \
+            cfg.v_head_dim
+        scale = 1.0 / hd ** 0.5
     bf = torch.bfloat16
+    kw = dict(causal=True, window=win, scale=scale)
 
     # ---- flash attention: one prefill of the median prompt ----------------
     L = int(np.median(prompt_lens))
     q = _randn(torch, gen, (1, L, H, hd), bf)
     k = _randn(torch, gen, (1, L, Hkv, hd), bf)
-    v = _randn(torch, gen, (1, L, Hkv, hd), bf)
-    got = flash_attention_cuda(q, k, v, causal=True, window=win)
-    want = flash_attention_plain(q, k, v, causal=True, window=win)
+    v = _randn(torch, gen, (1, L, Hkv, hdv), bf)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if win:
         pos = torch.arange(L, device="cuda")
-        mask = ((pos[None, :] <= pos[:, None])
-                & (pos[None, :] > pos[:, None] - win))
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  enable_gqa=True)
+        sdpa_kw = dict(attn_mask=((pos[None, :] <= pos[:, None])
+                                  & (pos[None, :] > pos[:, None] - win)),
+                       enable_gqa=True)
     else:
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+        sdpa_kw = dict(is_causal=True, enable_gqa=True, scale=scale)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+    backend = sdpa_backend(torch, qt, kt, vt, **sdpa_kw)
     lib_out = sdpa().transpose(1, 2)
     pairs = attention_pairs(L, L, True, win)
-    n_bytes = 2 * (2 * L * H * hd + 2 * L * Hkv * hd)
-    n_ops = 4 * hd * H * pairs
+    n_bytes = 2 * (L * H * (hd + hdv) + L * Hkv * (hd + hdv))
+    n_ops = 2 * (hd + hdv) * H * pairs
     fa_bound, fa_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
     prefill = {
         "launches": launches["flash_attention"],
         "instance": attention_instances(functions, attention_route(q, k, v),
                                         q, v, H // Hkv, decode=False,
                                         hgmma=hgmma),
-        "shape": [1, L, H, Hkv, hd], "dtype": "bfloat16", "window": win,
+        "shape": [1, L, H, Hkv, hd] + ([hdv] if hdv != hd else []),
+        "dtype": "bfloat16", "window": win, "scale": scale,
         "max_abs_err": _err(got, want),
         "library_max_abs_diff": _err(got, lib_out),
-        "ms": device_ms(torch, lambda: flash_attention_cuda(
-            q, k, v, causal=True, window=win), 20),
+        "ms": device_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw),
+                        20),
         "eager_ms": eager_ms(torch, lambda: flash_attention_cuda(
-            q, k, v, causal=True, window=win), 20),
+            q, k, v, **kw), 20),
         "plain_ms": device_ms(torch, lambda: flash_attention_plain(
-            q, k, v, causal=True, window=win), 2),
+            q, k, v, **kw), 2),
         "device_us_by_kernel": device_us_by_kernel(
-            torch, lambda: flash_attention_cuda(q, k, v, causal=True,
-                                                window=win), 20),
-        "library": "F.scaled_dot_product_attention",
+            torch, lambda: flash_attention_cuda(q, k, v, **kw), 20),
+        "library": "F.scaled_dot_product_attention", **backend,
         "library_ms": device_ms(torch, sdpa, 20),
         "bound_ms": fa_bound, "bound_by": fa_by,
         "bound_rate": "bf16 tensor cores 989 TFLOP/s; HBM 3.35 TB/s",
         "bound_ms_fp32_cuda_cores": bound_ms(n_bytes, n_ops,
                                              FP32_OPS_PER_S)[0],
     }
+    if cfg.mla:
+        return prefill, None
 
     # ---- flash decode: the four slots at mid-run positions ----------------
     S = min(SERVE_CACHE, win) if win else SERVE_CACHE
@@ -2682,6 +2962,7 @@ def attention_fields(torch, np, arch, launches, prompt_lens, functions,
         "device_us_by_kernel": device_us_by_kernel(
             torch, lambda: flash_decode_cuda(q, kc, vc, lens), 200),
         "library": "F.scaled_dot_product_attention",
+        **sdpa_backend(torch, qd, kd, vd, attn_mask=dmask, enable_gqa=True),
         "library_ms": device_ms(torch, sdpa_decode, 200),
         "bound_ms": fd_bound, "bound_by": fd_by,
         "bound_rate": "HBM 3.35 TB/s; bf16 tensor cores 989 TFLOP/s",
@@ -2689,14 +2970,21 @@ def attention_fields(torch, np, arch, launches, prompt_lens, functions,
     return prefill, decode
 
 
+# the kernels line's sub-entries: each served arch's shapes beside
+# RecurrentGemma-2B's
+_SUB_ENTRY = {LLAMA: "llama3_8b", QWEN_MOE: "qwen2_moe_a2_7b",
+              DEEPSEEK: "deepseek_v3_671b"}
+
+
 def serve_kernel_entries(torch, np, served, functions, hgmma,
                          rglru_functions):
     """The kernels line's entries of the attention kernels and the RG-LRU
     scan, each at the shape its path used (:func:`attention_fields`):
-    RecurrentGemma-2B's serve, with Llama-3-8B's beside it under
-    ``"llama3_8b"``, and the RG-LRU scan per route
-    (:func:`recurrence_entries`).  ``served``: each served arch's
-    (launches, prompt lengths, routes)."""
+    RecurrentGemma-2B's serve, with the other served archs' beside it
+    under their names (``"llama3_8b"``, ``"qwen2_moe_a2_7b"``,
+    ``"deepseek_v3_671b"``: its MLA prefill only, its decode has no
+    kernel), and the RG-LRU scan per route (:func:`recurrence_entries`).
+    ``served``: each served arch's (launches, prompt lengths, routes)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import rglru_scan as rglru
 
@@ -2715,12 +3003,16 @@ def serve_kernel_entries(torch, np, served, functions, hgmma,
         {"name": "flash_decode", **fixed,
          "replaces": "src/repro/kernels/flash_attention.py:162", **decode}]
     L = int(np.median(prompt_lens))
-    lgen = torch.Generator(device="cuda")
-    lgen.manual_seed(14)
-    l_launches, l_lens, l_routes = served[LLAMA]
-    for entry, fields in zip(entries, attention_fields(
-            torch, np, LLAMA, l_launches, l_lens, functions, hgmma, lgen)):
-        entry["llama3_8b"] = dict(fields, routes=l_routes[entry["name"]])
+    for arch, seed in ((LLAMA, 14), (QWEN_MOE, 15), (DEEPSEEK, 16)):
+        agen = torch.Generator(device="cuda")
+        agen.manual_seed(seed)
+        a_launches, a_lens, a_routes = served[arch]
+        for entry, fields in zip(entries, attention_fields(
+                torch, np, arch, a_launches, a_lens, functions, hgmma,
+                agen)):
+            if fields is not None:
+                entry[_SUB_ENTRY[arch]] = dict(
+                    fields, routes=a_routes[entry["name"]])
 
     # ---- RG-LRU scan: the decode step and the median prompt --------------
     def scan_inputs(B, T):
@@ -2748,7 +3040,8 @@ def serve_kernel_entries(torch, np, served, functions, hgmma,
     tol = {"flash_attention": TOL["bfloat16"], "flash_decode": TOL["bfloat16"],
            "rglru_scan": RGLRU_ATOL}
     ok = all(f["launches"] > 0 and f["max_abs_err"] <= tol[e["name"]]
-             for e in entries for f in (e, e.get("llama3_8b", e)))
+             for e in entries
+             for f in [e] + [e[k] for k in _SUB_ENTRY.values() if k in e])
     return entries, ok
 
 

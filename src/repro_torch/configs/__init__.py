@@ -21,6 +21,8 @@ __all__ = ["ARCHS", "ALIASES", "ShapeSpec", "SHAPES", "get_config",
            "get_reduced", "shape_applicable", "all_cells"]
 
 ARCHS: Tuple[str, ...] = (
+    "qwen2_moe_a2_7b",
+    "deepseek_v3_671b",
     "qwen3_8b",
     "granite_3_2b",
     "smollm_360m",

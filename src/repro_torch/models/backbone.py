@@ -15,10 +15,14 @@ come in two layouts, and every function here takes either:
   autograd gives the gradients on the stacked leaves.
 
 ``repro_torch.models.convert`` carries the reference's tree into either
-layout.  Caches are a list of per-layer dicts in plan order.
+layout.  Caches are a list of per-layer dicts in plan order.  DeepSeek's
+multi-token-prediction depth (``params["mtp"]``, one unstacked attention
+block) sits beside the layers in both layouts, as in the reference.
 
-The encoder, the vision frontend, MTP and MoE come with later slices
-(``ROADMAP.md``).
+``forward`` returns the MoE auxiliary loss beside the hidden states, as
+the reference's does; ``lm_loss`` adds it (and the MTP loss) to the
+cross-entropy.  The encoder and the vision frontend come with a later
+slice (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -28,9 +32,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from . import blocks
-from .config import (ATTN, LOCAL_ATTN, MOE, RGLRU, RWKV6, BlockSpec,
-                     ModelConfig, layer_groups, layer_plan)
+from . import blocks, moe
+from .config import (ATTN, DENSE, LOCAL_ATTN, MLA, MOE, RGLRU, RWKV6,
+                     BlockSpec, ModelConfig, layer_groups, layer_plan)
 from .layers import norm, uinit
 
 __all__ = ["init_params", "group_params", "layer_params", "init_cache",
@@ -39,14 +43,18 @@ __all__ = ["init_params", "group_params", "layer_params", "init_cache",
 
 Params = Dict[str, Any]
 
+#: the MTP depth's block, whatever the stack's kinds (an attention layer
+#: with a dense MLP, as the reference's)
+_MTP_SPEC = BlockSpec(ATTN, DENSE)
+
 
 def _check_served(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise blocks.not_ported("cross")
-    if cfg.frontend or cfg.mtp:
+    if cfg.frontend:
         raise NotImplementedError(
-            "frontends and MTP come with a later slice of the PyTorch port; "
-            "see ROADMAP.md")
+            "frontends come with a later slice of the PyTorch port; see "
+            "ROADMAP.md")
 
 
 # =========================================================================== #
@@ -55,6 +63,8 @@ def _check_served(cfg: ModelConfig) -> None:
 def _layer_init(cfg: ModelConfig, spec: BlockSpec, gen, dtype, device):
     if spec.kind in (ATTN, LOCAL_ATTN):
         mix = blocks.attn_init(cfg, gen, dtype, device)
+    elif spec.kind == MLA:
+        mix = blocks.mla_init(cfg, gen, dtype, device)
     elif spec.kind == RWKV6:      # owns its channel mix: no MLP entry
         return {"mix": blocks.rwkv6_init(cfg, gen, dtype, device)}
     elif spec.kind == RGLRU:
@@ -62,7 +72,7 @@ def _layer_init(cfg: ModelConfig, spec: BlockSpec, gen, dtype, device):
     else:
         raise blocks.not_ported(spec.kind)
     if spec.mlp == MOE:
-        raise blocks.not_ported(MOE)
+        return {"mix": mix, "mlp": moe.moe_init(cfg, gen, dtype, device)}
     return {"mix": mix, "mlp": blocks.mlp_block_init(cfg, gen, dtype, device)}
 
 
@@ -82,6 +92,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params["final_norm"] = torch.zeros((D,), dtype=dtype, device=device)
     if not cfg.tie_embeddings:
         params["head"] = uinit(generator, (D, V), 0.02, dtype, device)
+    if cfg.mtp:                   # one extra depth: an attention block
+        params["mtp"] = {
+            "proj": uinit(generator, (2 * D, D), None, dtype, device),
+            "ln_h": torch.zeros((D,), dtype=dtype, device=device),
+            "ln_e": torch.zeros((D,), dtype=dtype, device=device),
+            "block": _layer_init(cfg, _MTP_SPEC, generator, dtype, device),
+        }
     return params
 
 
@@ -138,13 +155,15 @@ def _block_cache(cfg: ModelConfig, spec: BlockSpec, B: int, S: int, dtype,
                  device) -> Dict[str, torch.Tensor]:
     """One layer's ``mix`` cache.  The int8 layout exists for attention KV
     only (:func:`blocks.attn_cache`: int8 values, fp32 scales): recurrent
-    caches stay bf16 under an int8 request, as the reference's
-    ``_block_cache`` keeps them."""
+    caches and MLA latents stay bf16 under an int8 request, as the
+    reference's ``_block_cache`` keeps them."""
     alt = torch.bfloat16 if dtype == torch.int8 else dtype
     if spec.kind == ATTN:
         return blocks.attn_cache(cfg, B, S, dtype, device)
     if spec.kind == LOCAL_ATTN:
         return blocks.attn_cache(cfg, B, min(S, cfg.window), dtype, device)
+    if spec.kind == MLA:
+        return blocks.mla_cache(cfg, B, S, alt, device)
     if spec.kind == RWKV6:
         return blocks.rwkv6_cache(cfg, B, S, alt, device)
     if spec.kind == RGLRU:
@@ -157,7 +176,7 @@ def init_cache(cfg: ModelConfig, B: int, S: int, dtype=torch.bfloat16,
     """Decode caches, one ``{"mix": ...}`` dict per layer in plan order.
     bf16 by default, as the reference; the RG-LRU state ``h`` and the RWKV6
     state ``s`` stay fp32.  An int8 request gives attention layers the
-    quantized KV layout and keeps the other recurrent caches bf16
+    quantized KV layout and keeps the other caches bf16
     (:func:`_block_cache`).
     A local-attention layer's cache is its window, ``min(S, window)``."""
     device = resolve_device(device)
@@ -177,44 +196,51 @@ def slot_view(caches, slot: int):
 # forward                                                                      #
 # =========================================================================== #
 def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, h, mode, cache, pos):
+    """One layer: (h, aux), aux the layer's MoE auxiliary loss, or None
+    for a layer without one (the reference adds a zero for it)."""
     if spec.kind == ATTN:
         h, _ = blocks.attn_apply(cfg, p["mix"], h, mode, cache, pos,
                                  causal=cfg.causal)
     elif spec.kind == LOCAL_ATTN:
         h, _ = blocks.attn_apply(cfg, p["mix"], h, mode, cache, pos,
                                  window=cfg.window)
+    elif spec.kind == MLA:
+        h, _ = blocks.mla_apply(cfg, p["mix"], h, mode, cache, pos)
     elif spec.kind == RWKV6:      # owns its channel mix
         h, _ = blocks.rwkv6_apply(cfg, p["mix"], h, mode, cache, pos)
-        return h
+        return h, None
     elif spec.kind == RGLRU:
         h, _ = blocks.rglru_apply(cfg, p["mix"], h, mode, cache, pos)
     else:
         raise blocks.not_ported(spec.kind)
     if spec.mlp == MOE:
-        raise blocks.not_ported(MOE)
-    return blocks.mlp_block_apply(cfg, p["mlp"], h)
+        return moe.moe_apply(cfg, p["mlp"], h)
+    return blocks.mlp_block_apply(cfg, p["mlp"], h), None
 
 
 def forward(cfg: ModelConfig, params: Params, h, mode: str, caches=None,
             pos=0, remat: bool = False):
     """Backbone over input embeddings h (B, T, D), ``mode`` "train",
-    "prefill" or "decode".  Returns (h, caches): the caches, when given,
-    are written in place.  (The reference also returns the MoE auxiliary
-    loss, which a dense stack does not have.)  ``remat`` recomputes each
-    layer in the backward instead of keeping its activations
-    (``torch.utils.checkpoint``, one call a layer, as the reference's
-    ``jax.checkpoint`` of a layer)."""
+    "prefill" or "decode".  Returns (h, caches, aux): the caches, when
+    given, are written in place; aux is the MoE auxiliary loss summed over
+    the layers in order (a 0-d fp32 tensor, zero for a dense stack).
+    ``remat`` recomputes each layer in the backward instead of keeping its
+    activations (``torch.utils.checkpoint``, one call a layer, as the
+    reference's ``jax.checkpoint`` of a layer)."""
     remat = remat and torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, (spec, p) in enumerate(zip(layer_plan(cfg),
                                       layer_params(cfg, params))):
         cache = caches[i]["mix"] if caches is not None else None
         if remat:
-            h = checkpoint(_apply_block, cfg, spec, p, h, mode, cache, pos,
-                           use_reentrant=False)
+            h, aux = checkpoint(_apply_block, cfg, spec, p, h, mode, cache,
+                                pos, use_reentrant=False)
         else:
-            h = _apply_block(cfg, spec, p, h, mode, cache, pos)
+            h, aux = _apply_block(cfg, spec, p, h, mode, cache, pos)
+        if aux is not None:
+            total = total + aux
     h = norm(h, params["final_norm"], cfg.norm_kind, cfg.norm_eps)
-    return h, caches
+    return h, caches, total
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens):
@@ -241,19 +267,37 @@ def _xent(logits, labels, mask=None):
     return nll.mean()
 
 
+def _mtp_loss(cfg: ModelConfig, params: Params, h, tokens):
+    """DeepSeek MTP: one extra depth predicting token t+2 from
+    [norm(h_t); norm(emb(tok_{t+1}))]."""
+    m = params["mtp"]
+    T = h.shape[1]
+    h_in = norm(h[:, :T - 2], m["ln_h"], cfg.norm_kind, cfg.norm_eps)
+    e_in = norm(embed_tokens(cfg, params, tokens[:, 1:T - 1]), m["ln_e"],
+                cfg.norm_kind, cfg.norm_eps)
+    hm = torch.cat([h_in, e_in], dim=-1) @ m["proj"]
+    hm, _ = _apply_block(cfg, _MTP_SPEC, m["block"], hm, "train", None, 0)
+    return _xent(logits_fn(cfg, params, hm), tokens[:, 2:])
+
+
 def lm_loss(cfg: ModelConfig, params: Params, batch, remat: bool = True):
     """Causal-LM training loss: ``batch["tokens"]`` (B, T) integer.
-    Returns ``(loss, {"xent", "aux"})``, ``aux`` a 0-d fp32 zero (the MoE
-    auxiliary loss, which the ported families do not have)."""
+    Returns ``(loss, metrics)``: loss = xent + aux (+ ``mtp_coef`` * mtp),
+    metrics ``{"xent", "aux"}`` and ``"mtp"`` for an MTP config; ``aux``
+    is the MoE auxiliary loss, a 0-d fp32 zero for a dense stack."""
     _check_served(cfg)
     tokens = batch["tokens"]
     h = embed_tokens(cfg, params, tokens)
-    h, _ = forward(cfg, params, h, "train", remat=remat)
+    h, _, aux = forward(cfg, params, h, "train", remat=remat)
     logits = logits_fn(cfg, params, h[:, :-1])
     loss = _xent(logits, tokens[:, 1:])
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     metrics = {"xent": loss, "aux": aux}
-    return loss + aux, metrics
+    loss = loss + aux
+    if cfg.mtp:
+        mtp = _mtp_loss(cfg, params, h, tokens)
+        metrics["mtp"] = mtp
+        loss = loss + cfg.mtp_coef * mtp
+    return loss, metrics
 
 
 # =========================================================================== #
@@ -263,7 +307,7 @@ def prefill(cfg: ModelConfig, params: Params, batch, caches):
     """Process the full prompt (``batch["tokens"]``, (B, T)), fill caches,
     return last-token logits."""
     h = embed_tokens(cfg, params, batch["tokens"])
-    h, caches = forward(cfg, params, h, "prefill", caches=caches)
+    h, caches, _ = forward(cfg, params, h, "prefill", caches=caches)
     return logits_fn(cfg, params, h[:, -1]), caches
 
 
@@ -271,5 +315,5 @@ def decode_step(cfg: ModelConfig, params: Params, tokens, caches, pos):
     """One decode step.  tokens: (B,) int; pos: an int or a (B,) integer
     tensor of per-request positions."""
     h = embed_tokens(cfg, params, tokens[:, None])
-    h, caches = forward(cfg, params, h, "decode", caches=caches, pos=pos)
+    h, caches, _ = forward(cfg, params, h, "decode", caches=caches, pos=pos)
     return logits_fn(cfg, params, h[:, 0]), caches

@@ -17,9 +17,10 @@ filled.
 ``<kind>_cache(cfg, B, S, dtype, device)`` — zeroed per-layer cache dict.
 
 Ported: softmax attention (full and sliding-window, with the bf16/fp32
-and the int8 KV-cache layouts), RWKV6 (time mix and channel mix), the
-RG-LRU recurrent block and the dense MLP block.  MLA, cross-attention and
-MoE come with later slices (``ROADMAP.md``) and raise
+and the int8 KV-cache layouts), DeepSeek's multi-head latent attention
+(MLA), RWKV6 (time mix and channel mix), the RG-LRU recurrent block and
+the dense MLP block (the MoE MLP is ``models/moe.py``).  Cross-attention
+comes with a later slice (``ROADMAP.md``) and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -30,19 +31,18 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
-from .config import MLA, MOE, ModelConfig
+from .config import ModelConfig
 from .layers import mlp_apply, mlp_init, norm, rope, uinit
 
 __all__ = [
     "attn_init", "attn_cache", "attn_apply",
+    "mla_init", "mla_cache", "mla_apply",
     "rwkv6_init", "rwkv6_cache", "rwkv6_apply",
     "rglru_init", "rglru_cache", "rglru_apply",
     "mlp_block_init", "mlp_block_apply", "not_ported",
 ]
 
 _LATER = {
-    MLA: "MLA (DeepSeek) blocks come with the other families' slice",
-    MOE: "MoE MLPs come with the other families' slice",
     "cross": "cross-attention (Whisper) comes with the other families' slice",
 }
 
@@ -167,6 +167,114 @@ def attn_apply(cfg: ModelConfig, p, x, mode: str, cache, pos, *,
                 buf.copy_(val[:, T - S:])
             else:
                 buf[:, :T] = val
+    return x + y, cache
+
+
+# =========================================================================== #
+# MLA — DeepSeek multi-head latent attention                                   #
+# =========================================================================== #
+def mla_init(cfg: ModelConfig, gen, dtype, device):
+    D, H = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+
+    def u(shape, scale=None):
+        return uinit(gen, shape, scale, dtype, device)
+    return {
+        "ln": _zeros((D,), dtype, device),
+        "wdq": u((D, qr)),
+        "qn": _zeros((qr,), dtype, device),
+        "wuq": u((qr, H, nd + rd)),
+        "wdkv": u((D, kvr + rd)),
+        "kvn": _zeros((kvr,), dtype, device),
+        "wuk": u((kvr, H, nd)),
+        "wuv": u((kvr, H, vd)),
+        "wo": u((H, vd, D), 1 / math.sqrt(H * vd)),
+    }
+
+
+def mla_cache(cfg: ModelConfig, B: int, S: int, dtype, device):
+    """The latent cache: the normed KV latent ``ckv`` (B, S, kv_lora_rank)
+    and the shared rotary key ``kr`` (B, S, qk_rope_head_dim)."""
+    return {"ckv": _zeros((B, S, cfg.kv_lora_rank), dtype, device),
+            "kr": _zeros((B, S, cfg.qk_rope_head_dim), dtype, device)}
+
+
+def _mla_qkv_latent(cfg: ModelConfig, p, h, positions):
+    nd, kvr = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    B, T, _ = h.shape
+    cq = norm(h @ p["wdq"], p["qn"], "rmsnorm", cfg.norm_eps)
+    q = (cq @ p["wuq"].reshape(cq.shape[-1], -1)).reshape(
+        B, T, cfg.n_heads, -1)                               # (B,T,H,nd+rd)
+    q_nope, q_rope = q[..., :nd], rope(q[..., nd:], positions, cfg.rope_theta)
+    dkv = h @ p["wdkv"]                                      # (B,T,kvr+rd)
+    ckv = norm(dkv[..., :kvr], p["kvn"], "rmsnorm", cfg.norm_eps)
+    k_rope = rope(dkv[..., kvr:], positions, cfg.rope_theta, heads=False)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _einsum(eq, a, b):
+    """``torch.einsum`` of operands promoted to one type, as jnp.einsum
+    promotes (a bf16 cache against fp32 weights gives fp32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def mla_apply(cfg: ModelConfig, p, x, mode: str, cache, pos):
+    """Prefill and train up-project the latent to per-head keys and values
+    and call the attention kernel (qk head dim nd + rd, v head dim vd);
+    decode works in latent space (the absorbed form) against the latent
+    cache, with no kernel, as the reference."""
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    scale = 1.0 / math.sqrt(nd + rd)
+    h = norm(x, p["ln"], cfg.norm_kind, cfg.norm_eps)
+    B, T, D = h.shape
+    H, kvr = cfg.n_heads, cfg.kv_lora_rank
+    wo = p["wo"].reshape(-1, D)
+
+    if mode == "decode":
+        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+        batched = pos_t.dim() == 1         # per-request positions (serving)
+        positions = pos_t[:, None] if batched else pos_t.reshape(1)
+        q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(cfg, p, h, positions)
+        S = cache["ckv"].shape[1]
+        slot = torch.clamp(pos_t, max=S - 1)
+        for name, val in (("ckv", ckv), ("kr", k_rope)):
+            buf = cache[name]
+            val = val[:, 0].to(buf.dtype)
+            if batched:
+                buf[torch.arange(B, device=x.device), slot] = val
+            else:
+                buf[:, int(slot)] = val
+        ckv_c, kr_c = cache["ckv"], cache["kr"]
+        # absorbed decode: scores in latent space, from fp32 operands (the
+        # reference's preferred_element_type=float32)
+        q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["wuk"])
+        s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv_c.float())
+        s = s + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(),
+                             kr_c.float())
+        cur = pos_t.expand(B) if not batched else pos_t
+        valid = (torch.arange(S, device=x.device)[None, :]
+                 < torch.clamp(cur + 1, max=S)[:, None])
+        s = torch.where(valid[:, None, :], s * scale,
+                        torch.full_like(s, -1e30))
+        w = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhs,bsr->bhr", w.to(ckv_c.dtype), ckv_c)
+        o = _einsum("bhr,rhv->bhv", o_lat, p["wuv"])          # (B,H,vd)
+        y = _einsum("bk,kd->bd", o.reshape(B, -1), wo)[:, None]
+        return x + y, cache
+
+    positions = pos + torch.arange(T, device=x.device)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(cfg, p, h, positions)
+    k_nope = (ckv @ p["wuk"].reshape(kvr, -1)).reshape(B, T, H, nd)
+    v = (ckv @ p["wuv"].reshape(kvr, -1)).reshape(B, T, H, vd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, rd)], dim=-1)
+    o = kops.flash_attention(q, k, v, causal=True, scale=scale)
+    y = o.reshape(B, T, -1) @ wo
+    if mode == "prefill" and cache is not None:
+        cache["ckv"][:, :T] = ckv
+        cache["kr"][:, :T] = k_rope
     return x + y, cache
 
 

@@ -2,7 +2,10 @@
 
 The reference's ``backbone.init_params`` returns a tree with ``embed``,
 ``head``, ``final_norm`` and ``groups``: one dict per ``layer_groups``
-entry, every leaf stacked with a leading ``count`` axis.  The port serves
+entry, every leaf stacked with a leading ``count`` axis (an MoE layer's
+expert leaves are then (count, E, D, F)); and, for an MTP config,
+``mtp``: one unstacked attention block with its projection and norms,
+which both layouts carry as it is.  The port serves
 from one dict per layer in plan order (``repro_torch.models.backbone``):
 :func:`params_from_reference` unstacks the groups into that layout.  It
 trains on the reference's own layout: :func:`grouped_params_from_reference`
@@ -63,8 +66,9 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
     out = {"embed": _tensor(tree["embed"], device),
            "layers": layers,
            "final_norm": _tensor(tree["final_norm"], device)}
-    if "head" in tree:
-        out["head"] = _tensor(tree["head"], device)
+    for k in ("head", "mtp"):
+        if k in tree:
+            out[k] = _map(lambda a: _tensor(a, device), tree[k])
     return out
 
 
@@ -78,6 +82,6 @@ def grouped_params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
     if len(tree["groups"]) != len(groups):
         raise ValueError(f"the tree has {len(tree['groups'])} groups, the "
                          f"config {len(groups)}")
-    keys = ("embed", "groups", "final_norm", "head")
+    keys = ("embed", "groups", "final_norm", "head", "mtp")
     return {k: _map(lambda a: _tensor(a, device), tree[k])
             for k in keys if k in tree}

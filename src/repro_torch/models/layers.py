@@ -74,11 +74,15 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     return positions.float()[..., None] * freqs
 
 
-def rope(x, positions: torch.Tensor, theta: float = 1e4):
-    """Rotary embedding, halves split (not interleaved).  x: (B, T, H, hd);
+def rope(x, positions: torch.Tensor, theta: float = 1e4, *,
+         heads: bool = True):
+    """Rotary embedding, halves split (not interleaved).  x: (B, T, H, hd)
+    when ``heads`` (default), else (B, T, hd) (MLA's shared ``k_rope``);
     positions: (T,), or (B, 1) for per-request decode positions."""
     hd = x.shape[-1]
-    ang = rope_angles(positions, hd, theta)[..., None, :]    # (..., T, 1, hd/2)
+    ang = rope_angles(positions, hd, theta)                  # (..., T, hd/2)
+    if heads:
+        ang = ang[..., None, :]                              # (..., T, 1, hd/2)
     while ang.dim() < x.dim():
         ang = ang[None]
     cos, sin = torch.cos(ang), torch.sin(ang)

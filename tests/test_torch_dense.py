@@ -128,15 +128,15 @@ def test_config_equals_the_reference_field_for_field(arch):
 def test_archs_keep_the_reference_order_and_aliases():
     assert configs.ARCHS == tuple(a for a in jconfigs.ARCHS
                                   if a in configs.ARCHS)
-    assert set(configs.ARCHS) == {"qwen3_8b", "granite_3_2b", "smollm_360m",
+    assert set(configs.ARCHS) == {"qwen2_moe_a2_7b", "deepseek_v3_671b",
+                                  "qwen3_8b", "granite_3_2b", "smollm_360m",
                                   "llama3_8b", "rwkv6_7b",
                                   "recurrentgemma_2b"}
     assert configs.ALIASES == {k: v for k, v in jconfigs.ALIASES.items()
                                if k in configs.ALIASES}
     assert {k for k, v in jconfigs.ALIASES.items()
             if v in configs.ARCHS} <= set(configs.ALIASES)
-    for name in ("qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-large-v3",
-                 "internvl2-76b"):
+    for name in ("whisper-large-v3", "internvl2-76b"):
         with pytest.raises(KeyError, match="ROADMAP"):
             configs.get_config(name)
 

@@ -19,7 +19,7 @@ from repro_torch.core.alloc_torch import (TorchAllocBackend,
                                           resolve_device)
 from repro_torch.configs import get_reduced
 from repro_torch.launch.serve import main as serve_main
-from repro_torch.models import backbone, blocks
+from repro_torch.models import backbone, blocks, moe
 from repro_torch.models.layers import mlp_init, uinit
 from repro_torch.sched.sweep import grid, run_batched
 from repro_torch.train.serve import BatchedServer, ServeConfig
@@ -77,7 +77,8 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
                 "kernels.node_usage", "kernels.ref", "train.tree",
                 "train.optimizer", "train.compression", "train.data",
                 "train.checkpoint", "train.trainer", "train.ft",
-                "launch.train"):
+                "launch.train", "models.moe", "configs.qwen2_moe_a2_7b",
+                "configs.deepseek_v3_671b"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
@@ -166,7 +167,8 @@ def test_grid_and_tuner_entry_points_default_to_cuda_and_raise_without_it(
     assert api.sweep([w], ["EASY"], backend="numpy").n_cells == 1
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
+                                  "qwen2-moe-a2.7b", "deepseek-v3-671b"])
 def test_serving_entry_points_default_to_cuda_and_raise_without_it(arch):
     _need_no_cuda()
     cfg = get_reduced(arch)
@@ -187,15 +189,18 @@ def test_block_builders_take_the_device_from_the_caller():
     points above choose one (the card)."""
     cfg = get_reduced("recurrentgemma-2b")
     gen = torch.Generator().manual_seed(0)
-    for build in (blocks.attn_init, blocks.rglru_init, blocks.mlp_block_init,
-                  blocks.rwkv6_init):
+    ds = get_reduced("deepseek-v3-671b")
+    for build, c in ((blocks.attn_init, cfg), (blocks.rglru_init, cfg),
+                     (blocks.mlp_block_init, cfg), (blocks.rwkv6_init, cfg),
+                     (blocks.mla_init, ds), (moe.moe_init, ds)):
         with pytest.raises(TypeError):
-            build(cfg, gen, torch.float32)
-        p = build(cfg, gen, torch.float32, "cpu")
+            build(c, gen, torch.float32)
+        p = build(c, gen, torch.float32, "cpu")
         assert all(t.device.type == "cpu" for t in p.values())
-    for build in (blocks.attn_cache, blocks.rglru_cache, blocks.rwkv6_cache):
+    for build, c in ((blocks.attn_cache, cfg), (blocks.rglru_cache, cfg),
+                     (blocks.rwkv6_cache, cfg), (blocks.mla_cache, ds)):
         with pytest.raises(TypeError):
-            build(cfg, 1, 8, torch.float32)
+            build(c, 1, 8, torch.float32)
     with pytest.raises(TypeError):
         uinit(gen, (4, 4), None, torch.float32)
     with pytest.raises(TypeError):

@@ -287,7 +287,7 @@ def test_decode_continues_the_dense_forward(model):
     exactly what the next token needs."""
     cfg, _, params = model
     toks = _t(_tokens(4, (1, 10), cfg.vocab)).long()
-    hf, _ = backbone.forward(cfg, params,
+    hf, _, _ = backbone.forward(cfg, params,
                              backbone.embed_tokens(cfg, params, toks), "train")
     dense = backbone.logits_fn(cfg, params, hf[:, 9])
     tc = backbone.init_cache(cfg, 1, 16, dtype=torch.float32, device="cpu")

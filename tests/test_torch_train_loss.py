@@ -120,11 +120,12 @@ def test_lm_loss_refuses_the_families_still_to_come():
     import dataclasses
     _, _, pcfg, params = model("smollm-360m")
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    for change in (dict(mtp=True), dict(frontend="vision"),
-                   dict(encoder_layers=2)):
+    for change in (dict(frontend="vision"), dict(encoder_layers=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             backbone.lm_loss(dataclasses.replace(pcfg, **change), params,
                              toks)
+    # MTP is served (test_torch_moe_family.py)
+    backbone._check_served(dataclasses.replace(pcfg, mtp=True))
 
 
 # --------------------------------------------------------------------------- #

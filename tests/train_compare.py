@@ -111,7 +111,7 @@ def assert_tree_close(want_tree, got_tree, tol=TOL, loose=lambda path: False,
 # --------------------------------------------------------------------------- #
 STEP_B, STEP_T, STEPS = 4, 32, 3
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=30)
-METRICS = ("loss", "xent", "aux", "grad_norm", "lr")
+METRICS = ("loss", "xent", "aux", "mtp", "grad_norm", "lr")   # mtp: MTP configs
 
 
 def run_both(arch, microbatches, factored, compress, steps=STEPS):
@@ -142,9 +142,9 @@ def run_both(arch, microbatches, factored, compress, steps=STEPS):
     for i in range(steps):
         toks = tokens(10 + i, (STEP_B, STEP_T), cfg.vocab)
         js, m = jstep(js, {"tokens": jnp.asarray(toks)})
-        jm.append({k: float(m[k]) for k in METRICS})
+        jm.append({k: float(m[k]) for k in METRICS if k in m})
         ts, m = tstep(ts, {"tokens": torch.from_numpy(toks).long()})
-        tm.append({k: float(m[k]) for k in METRICS})
+        tm.append({k: float(m[k]) for k in METRICS if k in m})
     return jm, js, tm, ts
 
 
@@ -162,7 +162,8 @@ def check_step_run(jm, js, tm, ts, factored, compress):
       and its update with it).
     """
     for a, b in zip(jm, tm):
-        for k in METRICS:
+        assert set(a) == set(b)
+        for k in a:
             np.testing.assert_allclose(b[k], a[k], rtol=TOL, atol=TOL,
                                        err_msg=k)
     assert_tree_close(js, ts, loose=lambda path: compress or (
