@@ -34,7 +34,8 @@ fails ends the run with exit code 1:
                128 nodes, load 0.7: OPT=MIN seeds, two OPT=AVG cells, two
                EASY cells) on the card; every outcome field of every record
                must equal the host numpy ``Engine`` run of the same cell
-               (timed, with its allocation share);
+               (timed, with its allocation share; see "host checks"
+               below);
                the kernel launch counts (and the solve's routes) are
                zeroed just before and read just after; ``torch.profiler`` traces the card's activity over the
                run for the device's busy share; peak device memory is
@@ -45,8 +46,7 @@ fails ends the run with exit code 1:
                and MINFT policies, and HPC2N (1000 jobs, 128 nodes, seed
                0) under EASY and GreedyPM */per/OPT=MIN/MINVT=600; every
                outcome field of every record must equal the host numpy
-               ``Engine`` run (timed by cell; the cells in a pool of
-               processes, one a core, after the card's run), both
+               ``Engine`` run (timed by cell, in the host checks), both
                kernels must launch,
                and the launch counts, busy share and peak memory are read
                as in phase 4;
@@ -61,9 +61,11 @@ fails ends the run with exit code 1:
                500th release, a failure of nodes 0-7 at +600 s and their
                join at +7,200 s injected, the snapshot saved and loaded,
                9 what-if branches raced in lockstep by ``run_branches``
-               on the card, each record against its serial host run, the
+               on the card, each record against its host run, the
                same-policy branch also against the original session run
                on; launch counts zeroed before and read after each part;
+               the host runs of (a) and of each branch alone go to the
+               host checks below;
 4d. slice scenarios — scenario grids, chaos and the autotuner on the card,
                at phase 4's size, under GreedyP */OPT=MIN unless said:
                (a) ``run_grid`` on the card over 14 cells — Lublin (phase
@@ -92,7 +94,14 @@ fails ends the run with exit code 1:
                80,000 s (a reference-side livelock keeps it from ending),
                each against the host numpy tuner (decisions and result); the
                races, rungs and walls; launch counts, shapes, busy share
-               and peak memory by part as in phase 4;
+               and peak memory by part as in phase 4; (b)'s and (c)'s host
+               runs go to the host checks;
+   host checks — the host reference runs of phases 4-4d (phase 4's 20
+               cells, 4b's 10, 4c's whole log and 9 branches, 4d's chaos
+               session and two tuned sessions) in one pool of processes,
+               one a core, the longest first, once the card's runs of all
+               four phases have ended (so no card wall overlaps a host
+               run); then each phase's check and line, in phase order;
 4e. slice serve — the multi-tenant session server, every session on the
                card, 128 nodes: (a) a ``ServerThread`` (store, 64 live,
                no fsync) and 4 tenants, each a client in its own thread,
@@ -143,7 +152,17 @@ fails ends the run with exit code 1:
                dim 192 over v head dim 128, scale 1/sqrt(192): wgmma<2>),
                Qwen1.5-MoE's prefill (1,540 tokens, 16 over 16 heads of
                128: wgmma<2>) and decode (4 x 4,096 slots, a group of one:
-               mma<1>, lengths 0, S - 1 and past S) (fp32 2e-5, bf16 2e-2,
+               mma<1>, lengths 0, S - 1 and past S); and at Whisper's
+               (20 over 20 heads of 64) and InternVL2's (64 over 8 of
+               128), fp32 and bf16, each timed beside SDPA: the encoder's
+               1,500 frames (bidirectional: wgmma<1>), a 384-token decoder
+               prompt, cross-attention prefill (300 queries against 1,500
+               frames, non-causal, both ragged against a key tile),
+               decode over 512 slots and over the 1,500 cross frames
+               (cur_len = S_enc), InternVL2's prefill (1,500 tokens:
+               wgmma<2>) and decode (a group of 8 over 4,096 slots:
+               mma<1>); a decode over an empty cache (S = 0, the mirrored
+               server's cross cache) must give exactly 0 (fp32 2e-5, bf16 2e-2,
                the RG-LRU atol 1e-5 / rtol 1e-4, the WKV atol = rtol =
                1e-4: the reference's kernel tolerances);
 6. model check — per arch at full width, cut in depth, fp32, seeded
@@ -158,7 +177,11 @@ fails ends the run with exit code 1:
                a 49,155 vocabulary); the MoE family 2 layers deep, prefill
                of 512 tokens: Qwen1.5-MoE-A2.7B (60 experts top-4, 4
                gated shared ones) and DeepSeek-V3 (both layers MLA with
-               the dense MLP, its MTP depth left out); then 8 decode steps
+               the dense MLP, its MTP depth left out); Whisper-large-v3 2
+               encoder and 2 decoder layers deep, 1,500 seeded frames
+               encoded into a filled cross cache, prefill of 256 tokens;
+               InternVL2-76B 2 layers deep, 256 seeded patch embeddings in
+               place of the first of 512 tokens; then 8 decode steps
                (DeepSeek-V3's through the absorbed latent decode), on the
                card (kernels) and on the host CPU (plain versions), logits
                compared (atol = rtol = 2e-3) and greedy tokens counted;
@@ -182,7 +205,21 @@ fails ends the run with exit code 1:
                3 dense MLA layers and one MoE layer of 256 experts top-8
                and a shared one; no MTP depth), one wave of 4 requests of
                16 new tokens (both cut in requests for the script's time
-               limit); each MoE serve also gives
+               limit); Whisper-large-v3 at full size (32 encoder and 32
+               decoder layers), cache 512, 8 requests of 64-384 prompt
+               tokens and 64 new ones, each with 1,500 seeded frames
+               (30 s of audio) encoded and its cross K/V cached at
+               admission (as a user runs it, not as the reference's
+               server, which encodes 8 zero frames into an empty cross
+               cache), with the encoder's frames a second against its
+               operation bound and a step against the read of the
+               decoder's weights and the cross K/V, then ``python -m
+               repro_torch.launch.serve --arch whisper-large-v3``
+               (the mirrored server) as a process, which must exit 0;
+               InternVL2-76B at full width cut to 8 of its 80 layers, one
+               wave of 4 requests of 1,024-2,000 tokens whose first 256
+               take seeded patch embeddings, 32 new tokens each; each MoE
+               serve also gives
                the weight bytes a decode step reads (every expert, as the
                dispatch multiplies all E experts' buffers) and a token's
                active bytes, each over 3.35 TB/s; every request
@@ -191,8 +228,10 @@ fails ends the run with exit code 1:
                show every kernel of the arch, each launch on its instance:
                prefill attention on ``attn_wgmma_kernel<NVP>`` (NVP 4 for
                RecurrentGemma-2B's head dim 256, 2 for Llama-3-8B's,
-               Qwen1.5-MoE's and MLA's v head dim of 128), decode
-               attention on ``decode_mma_kernel<TQ, 1>``, every
+               Qwen1.5-MoE's, MLA's and InternVL2's v head dim of 128, 1
+               for Whisper's 64: its encoder, decoder and cross-attention
+               prefill), decode attention on ``decode_mma_kernel<TQ, 1>``
+               (Whisper's cross-attention decode too), every
                prefill launch of the RG-LRU scan and of the WKV recurrence
                on the chunked route and every decode launch on the
                sequential one; then the serve's last wave
@@ -215,8 +254,10 @@ fails ends the run with exit code 1:
                ptxas registers and spills of its functions) and split
                their device time by kernel name, at RecurrentGemma-2B's
                served shapes and, under ``llama3_8b``,
-               ``qwen2_moe_a2_7b`` and ``deepseek_v3_671b`` (prefill
-               only), at those archs' (their launches and instances beside
+               ``qwen2_moe_a2_7b``, ``deepseek_v3_671b`` (prefill
+               only), ``whisper_large_v3`` (with its encoder's and
+               cross-attention's shapes beside) and ``internvl2_76b``, at
+               those archs' (their launches and instances beside
                them, SDPA's backend named); the RG-LRU scan
                and the
                WKV recurrence have an entry per route (decode on the
@@ -999,8 +1040,7 @@ def _shapes(stats):
 def _host_cell(cell):
     """One cell on the host numpy ``Engine``: its ``SimResult``, the run's
     wall and its allocation seconds."""
-    if str(ROOT / "src") not in sys.path:
-        sys.path.insert(0, str(ROOT / "src"))
+    _src_on_path()
     from repro_torch.sched.engine import Engine, SimParams
     from repro_torch.workloads.registry import make_trace_ir
 
@@ -1012,43 +1052,108 @@ def _host_cell(cell):
     return ref, time.perf_counter() - t0, alloc.seconds
 
 
-def drive_cells(torch, np, cells, host_workers=0):
-    """``run_batched`` over ``cells`` on the card, then each cell on the
-    host numpy ``Engine``: the records, the sweep's wall, the launch counts
-    and routes (zeroed just before the run, read just after), peak device
-    memory over the start, the traced busy share, each cell's host wall,
-    the host run's allocation seconds and the cells whose outcome fields
-    differ from the host run (or whose max stretch is not finite and at
-    least 1).  With ``host_workers``, the host runs go to a pool of that
-    many processes once the card's run has ended (its wall is
-    ``host_pool_wall_s``)."""
+def _call(item):
+    fn, job = item
+    return fn(job)
+
+
+def host_pool(items):
+    """``fn(job)`` for each ``(fn, job)`` of ``items`` in a forkserver pool
+    (no worker is a fork of this process's CUDA context), one process a
+    job up to one a core, the jobs handed out in the order given.  The
+    fork server imports this script and the port once, so a worker starts
+    with them loaded.  Callers start it only once the card's timed runs
+    that it checks have ended, so a card wall never overlaps it.  Returns
+    (results in order, the pool's wall)."""
     import multiprocessing
 
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["__main__", "repro_torch.api"])
+    with ctx.Pool(min(len(items), os.cpu_count() or 1)) as pool:
+        out = list(pool.imap(_call, items, chunksize=1))
+    return out, time.perf_counter() - t0
+
+
+class HostChecks:
+    """The host reference runs of phases 4-4d, gathered as the phases hand
+    them over and run together in one :func:`host_pool` once the card's
+    runs of all four phases have ended (the longest jobs first); then each
+    phase's check (``finish(results, pool wall)``, which emits the phase's
+    line and raises :class:`PhaseFailed`) in phase order.  Files the jobs
+    read live in ``tmp`` until then."""
+
+    def __init__(self):
+        import tempfile
+        self._dir = tempfile.TemporaryDirectory()
+        self.tmp = self._dir.name
+        self.items = []
+
+    def add(self, name, fn, jobs, finish, first=False):
+        self.items.append((name, fn, list(jobs), finish, first))
+
+    def run(self):
+        """Runs every job, then every check; returns each check's result
+        by name."""
+        order = sorted(range(len(self.items)),
+                       key=lambda i: not self.items[i][4])
+        flat = [(i, (self.items[i][1], job)) for i in order
+                for job in self.items[i][2]]
+        try:
+            results, wall = host_pool([item for _, item in flat])
+        finally:
+            self._dir.cleanup()
+        by_item = {i: [] for i in order}
+        for (i, _), r in zip(flat, results):
+            by_item[i].append(r)
+        return {name: finish(by_item[i], wall)
+                for i, (name, _, _, finish, _) in enumerate(self.items)}
+
+
+def defer(checks, name, fn, jobs, finish, first=False):
+    """Hands ``jobs`` and their check to ``checks``; with no ``checks``
+    (a phase called alone), runs them now and returns the check's
+    result."""
+    if checks is not None:
+        checks.add(name, fn, jobs, finish, first)
+        return None
+    results, wall = host_pool([(fn, job) for job in jobs])
+    return finish(results, wall)
+
+
+def _src_on_path():
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+
+
+def drive_cells(torch, np, cells):
+    """``run_batched`` over ``cells`` on the card: the records, the sweep's
+    wall, the launch counts and routes (zeroed just before the run, read
+    just after), peak device memory over the start and the traced busy
+    share.  :func:`check_cells` adds the host runs' check."""
     from repro_torch.sched.sweep import run_batched
     from repro_torch.workloads.registry import make_trace_ir
 
     for c in cells:
         make_trace_ir(c.workload)               # traces are set-up, not run
     res, line = _traced(torch, lambda: run_batched(cells, device="cuda"))
+    return {"res": res, "line": line, "launches": line["launches"]}
 
-    t1 = time.perf_counter()
-    if host_workers:
-        # forkserver: no worker is a fork of this process's CUDA context
-        ctx = multiprocessing.get_context("forkserver")
-        with ctx.Pool(host_workers) as pool:
-            hosts = list(pool.imap(_host_cell, cells, chunksize=1))
-    else:
-        hosts = [_host_cell(c) for c in cells]
-    pool_wall = time.perf_counter() - t1 if host_workers else None
+
+def check_cells(np, run, cells, hosts, pool_wall):
+    """A :func:`drive_cells` run with each cell's host numpy ``Engine`` run
+    (:func:`_host_cell`, from a pool): each cell's host wall, the host
+    runs' allocation seconds, the pool's wall and the cells whose outcome
+    fields differ from the host run (or whose max stretch is not finite
+    and at least 1)."""
     mismatches = []
-    for c, rec, (ref, _, _) in zip(cells, res.records, hosts):
+    for c, rec, (ref, _, _) in zip(cells, run["res"].records, hosts):
         bad = [k for k in _OUTCOMES if rec[k] != getattr(ref, k)]
         if not np.isfinite(rec["max_stretch"]) or rec["max_stretch"] < 1.0:
             bad.append("max_stretch not finite and >= 1")
         if bad:
             mismatches.append({"cell": c.name, "fields": bad})
-    return {"res": res, "line": line, "launches": line["launches"],
-            "host_walls": [h[1] for h in hosts],
+    return {**run, "host_walls": [h[1] for h in hosts],
             "host_alloc_s": sum(h[2] for h in hosts),
             "host_pool_wall_s": pool_wall,
             "mismatches": mismatches, "host_results": [h[0] for h in hosts]}
@@ -1061,7 +1166,11 @@ def sweep_line(run):
             **_shapes(run["res"].alloc_stats)}
 
 
-def phase_slice(torch, np):
+def phase_slice(torch, np, checks=None):
+    """Phase 4 on the card; its host check goes to ``checks``
+    (:class:`HostChecks`), whose result is the seed-0 OPT=MIN cell on the
+    card and on the host, phase 4e's yardstick.  Returns the launch
+    counts, the allocator's stats and (with no ``checks``) that pair."""
     from repro_torch.sched.sweep import Cell
     from repro_torch.workloads.registry import WorkloadSpec
 
@@ -1074,27 +1183,33 @@ def phase_slice(torch, np):
              + [Cell(w(s), "EASY") for s in range(2)])
     run = drive_cells(torch, np, cells)
     res, launches = run["res"], run["launches"]
-    ok = not run["mismatches"] and all(v > 0 for v in launches.values())
-    emit({"phase": "slice", "ok": ok, "cells": len(cells),
-          "min_seeds": MIN_SEEDS,
-          "n_jobs": N_JOBS, "n_nodes": N_NODES, "load": LOAD,
-          **sweep_line(run),
-          "host_reference_wall_s": sum(run["host_walls"]),
-          "host_reference_alloc_s": run["host_alloc_s"],
-          "mismatches": run["mismatches"],
-          "max_stretch": [rec["max_stretch"] for rec in res.records]})
-    if not ok:
-        raise PhaseFailed("the slice disagrees with the host run or did not "
-                          "reach a kernel")
-    # the seed-0 OPT=MIN cell, on the card and on the host: phase 4e's yardstick
-    return launches, res.alloc_stats, (res.records[0],
-                                       run["host_results"][0])
+
+    def finish(hosts, pool_wall):
+        checked = check_cells(np, run, cells, hosts, pool_wall)
+        ok = not checked["mismatches"] and all(v > 0
+                                               for v in launches.values())
+        emit({"phase": "slice", "ok": ok, "cells": len(cells),
+              "min_seeds": MIN_SEEDS,
+              "n_jobs": N_JOBS, "n_nodes": N_NODES, "load": LOAD,
+              **sweep_line(checked),
+              "host_reference_wall_s": sum(checked["host_walls"]),
+              "host_reference_alloc_s": checked["host_alloc_s"],
+              "host_pool_wall_s": pool_wall,
+              "mismatches": checked["mismatches"],
+              "max_stretch": [rec["max_stretch"] for rec in res.records]})
+        if not ok:
+            raise PhaseFailed("the slice disagrees with the host run or did "
+                              "not reach a kernel")
+        return res.records[0], checked["host_results"][0]
+    seed0 = defer(checks, "slice", _host_cell, cells, finish)
+    return launches, res.alloc_stats, seed0
 
 
-def phase_slice_mcb8(torch, np):
+def phase_slice_mcb8(torch, np, checks=None):
     """The paper's MCB8 policy family on the card: MCB8 re-packs, the /per
     and /stretch-per passes, each followed by the §4.6 reallocation
-    through the lockstep dispatcher, on Lublin and on HPC2N."""
+    through the lockstep dispatcher, on Lublin and on HPC2N; the host
+    check goes to ``checks`` (:class:`HostChecks`), or runs now."""
     from repro_torch.sched.sweep import Cell
     from repro_torch.workloads.registry import WorkloadSpec
 
@@ -1103,28 +1218,34 @@ def phase_slice_mcb8(torch, np):
     hpc2n = WorkloadSpec("hpc2n", n_jobs=HPC2N_JOBS, n_nodes=N_NODES, seed=0)
     cells = ([Cell(lublin, p) for p in MCB8_LUBLIN]
              + [Cell(hpc2n, p) for p in MCB8_HPC2N])
-    run = drive_cells(torch, np, cells, host_workers=min(
-        len(cells), os.cpu_count() or 1))
+    run = drive_cells(torch, np, cells)
     res, launches = run["res"], run["launches"]
-    host_by_policy = Counter()
-    for c, s in zip(cells, run["host_walls"]):
-        host_by_policy[f"{c.workload.kind} {c.policy}"] += s
-    ok = not run["mismatches"] and all(v > 0 for v in launches.values())
-    emit({"phase": "slice mcb8", "ok": ok, "cells": len(cells),
-          "lublin": lublin.to_dict(), "hpc2n": hpc2n.to_dict(),
-          **sweep_line(run),
-          "host_reference_wall_s": sum(run["host_walls"]),
-          "host_reference_alloc_s": run["host_alloc_s"],
-          "host_reference_s_by_cell": dict(host_by_policy),
-          "host_pool_wall_s": run["host_pool_wall_s"],
-          "mismatches": run["mismatches"],
-          "stretch": {f"{c.workload.kind} {c.policy}":
-                      {"max": rec["max_stretch"], "mean": rec["mean_stretch"],
-                       "n_mig": rec["n_mig"], "n_pmtn": rec["n_pmtn"]}
-                      for c, rec in zip(cells, res.records)}})
-    if not ok:
-        raise PhaseFailed("the MCB8 slice disagrees with the host run or did "
-                          "not reach a kernel")
+
+    def finish(hosts, pool_wall):
+        checked = check_cells(np, run, cells, hosts, pool_wall)
+        host_by_policy = Counter()
+        for c, s in zip(cells, checked["host_walls"]):
+            host_by_policy[f"{c.workload.kind} {c.policy}"] += s
+        ok = not checked["mismatches"] and all(v > 0
+                                               for v in launches.values())
+        emit({"phase": "slice mcb8", "ok": ok, "cells": len(cells),
+              "lublin": lublin.to_dict(), "hpc2n": hpc2n.to_dict(),
+              **sweep_line(checked),
+              "host_reference_wall_s": sum(checked["host_walls"]),
+              "host_reference_alloc_s": checked["host_alloc_s"],
+              "host_reference_s_by_cell": dict(host_by_policy),
+              "host_pool_wall_s": pool_wall,
+              "mismatches": checked["mismatches"],
+              "stretch": {f"{c.workload.kind} {c.policy}":
+                          {"max": rec["max_stretch"],
+                           "mean": rec["mean_stretch"],
+                           "n_mig": rec["n_mig"], "n_pmtn": rec["n_pmtn"]}
+                          for c, rec in zip(cells, res.records)}})
+        if not ok:
+            raise PhaseFailed("the MCB8 slice disagrees with the host run or "
+                              "did not reach a kernel")
+    # the MCB8 cells are the longest host runs: handed out first
+    defer(checks, "slice mcb8", _host_cell, cells, finish, first=True)
 
 
 def write_swf_log(np, path, n_jobs, seed, mean_gap):
@@ -1159,10 +1280,36 @@ def _result_fields(r):
     return d
 
 
-def session_stream(torch, np, tmp):
-    """(a) the swf log streamed through a compacting session on the card,
-    against the host numpy ``Engine`` run of the whole log, uncompacted."""
+def _session_host(job):
+    """A host reference run of phase 4c, in a pool process: ``("stream",
+    path)``, the numpy ``Engine`` over the whole swf log, uncompacted:
+    (result, wall, allocation seconds); or ``("branch", snapshot path, i,
+    policy)``, what-if branch i alone on the host numpy path: its record
+    (with ``cell`` and ``branch`` i)."""
+    _src_on_path()
     from repro_torch.sched.engine import Engine, SimParams
+    from repro_torch.sched.sweep import run_branches
+    from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
+
+    if job[0] == "stream":
+        whole = make_trace_ir(WorkloadSpec("swf", n_jobs=STREAM_JOBS,
+                                           n_nodes=N_NODES,
+                                           params={"path": job[1]}))
+        alloc = TimedHostAlloc()
+        t0 = time.perf_counter()
+        ref = Engine(whole, SESSION_POLICY, SimParams(n_nodes=N_NODES),
+                     alloc_backend=alloc).run()
+        return ref, time.perf_counter() - t0, alloc.seconds
+    _, path, i, policy = job
+    rec = run_branches(path, [policy], backend="numpy").records[0]
+    return dict(rec, cell=i, branch=i)
+
+
+def session_stream(torch, np, tmp):
+    """(a) the swf log streamed through a compacting session on the card;
+    the line, without the host check, and the host job that checks it
+    (:func:`_session_host`, :func:`stream_check`)."""
+    from repro_torch.sched.engine import SimParams
     from repro_torch.sched.session import open_session
     from repro_torch.workloads.lublin import offered_load
     from repro_torch.workloads.registry import (WorkloadSpec, make_trace_ir,
@@ -1200,15 +1347,6 @@ def session_stream(torch, np, tmp):
 
     (ses, got), line = _traced(torch, run)
     st = ses.engine.state
-    host_alloc = TimedHostAlloc()
-    t0 = time.perf_counter()
-    ref = Engine(whole, SESSION_POLICY, SimParams(n_nodes=N_NODES),
-                 alloc_backend=host_alloc).run()
-    host_wall = time.perf_counter() - t0
-    a, b = _result_fields(got), _result_fields(ref)
-    bad = sorted(k for k in a if a[k] != b[k])
-    if not np.isfinite(got.max_stretch) or got.max_stretch < 1.0:
-        bad.append("max_stretch not finite and >= 1")
     return {"jobs": len(whole), "offered_load": load,
             "window_s": STREAM_WINDOW_S, "compact_interval": COMPACT_AT,
             "chunks": peak["chunks"], "events": got.events,
@@ -1218,9 +1356,20 @@ def session_stream(torch, np, tmp):
             **_shapes(ses.engine.alloc_backend.stats),
             "peak_engine_rows": peak["rows"], "row_capacity": st.capacity,
             "grow_count": st.grow_count, "retired_rows": len(st.retired),
-            "host_reference_wall_s": host_wall,
-            "host_reference_alloc_s": host_alloc.seconds,
-            "mismatches": bad}
+            "result": got}, ("stream", path)
+
+
+def stream_check(np, line, host):
+    """(a)'s line with its host check: every ``SimResult`` field against
+    the host run of the whole log."""
+    got = line.pop("result")
+    ref, wall, alloc_s = host
+    a, b = _result_fields(got), _result_fields(ref)
+    bad = sorted(k for k in a if a[k] != b[k])
+    if not np.isfinite(got.max_stretch) or got.max_stretch < 1.0:
+        bad.append("max_stretch not finite and >= 1")
+    return {**line, "host_reference_wall_s": wall,
+            "host_reference_alloc_s": alloc_s, "mismatches": bad}
 
 
 def _branch_name(entry):
@@ -1231,8 +1380,10 @@ def _branch_name(entry):
 
 def session_branches(torch, np, tmp):
     """(b) what-if branches from a snapshot of a session on the card, raced
-    in lockstep, each against its serial host run; the same-policy branch
-    also against the original session continued on the card."""
+    in lockstep; the same-policy branch against the original session
+    continued on the card.  Returns the line, without the host check, and
+    the host jobs that check it, a branch each (:func:`_session_host`,
+    :func:`branches_check`)."""
     from repro_torch.sched.session import SessionState, open_session
     from repro_torch.sched.sweep import run_branches
     from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
@@ -1257,17 +1408,6 @@ def session_branches(torch, np, tmp):
     t0 = time.perf_counter()
     cont = ses.run()
     cont_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    host = run_branches(back, BRANCHES, backend="numpy")
-    host_wall = time.perf_counter() - t0
-    skip = ("wall_s", "sim_wall_s", "backend")
-    mismatches = []
-    for rec, ref in zip(res.records, host.records):
-        bad = sorted(k for k in ref if k not in skip and rec.get(k) != ref[k])
-        if not np.isfinite(rec["max_stretch"]) or rec["max_stretch"] < 1.0:
-            bad.append("max_stretch not finite and >= 1")
-        if bad:
-            mismatches.append({"branch": rec["cell"], "fields": bad})
     same = res.records[0]
     cont_bad = [k for k in _OUTCOMES
                 if k in same and same[k] != getattr(cont, k)]
@@ -1284,32 +1424,55 @@ def session_branches(torch, np, tmp):
                           "events": r["events"], "wall_s": r["wall_s"]}
                          for r in res.records},
             **line, **_shapes(res.alloc_stats),
-            "host_serial_wall_s": host_wall,
-            "host_by_branch_s": [r["wall_s"] for r in host.records],
             "continuation_wall_s": cont_wall,
             "continuation_mismatches": cont_bad,
+            "records": res.records}, [("branch", path, i, b)
+                                      for i, b in enumerate(BRANCHES)]
+
+
+def branches_check(np, line, host):
+    """(b)'s line with its host check: each branch's record against its
+    host run alone, every field but the walls and the backend."""
+    skip = ("wall_s", "sim_wall_s", "backend")
+    mismatches = []
+    for rec, ref in zip(line.pop("records"), host):
+        bad = sorted(k for k in ref if k not in skip and rec.get(k) != ref[k])
+        if not np.isfinite(rec["max_stretch"]) or rec["max_stretch"] < 1.0:
+            bad.append("max_stretch not finite and >= 1")
+        if bad:
+            mismatches.append({"branch": rec["cell"], "fields": bad})
+    return {**line, "host_by_branch_s": [r["wall_s"] for r in host],
             "mismatches": mismatches}
 
 
-def phase_slice_session(torch, np):
+def phase_slice_session(torch, np, checks=None):
     """Open sessions on the card: a long swf log streamed with row
-    compaction, and what-if branches raced in lockstep."""
-    import tempfile
+    compaction, and what-if branches raced in lockstep; the host checks
+    go to ``checks`` (:class:`HostChecks`), or run now."""
+    own = checks is None
+    checks = HostChecks() if own else checks
+    stream, stream_job = session_stream(torch, np, checks.tmp)
+    branches, branch_jobs = session_branches(torch, np, checks.tmp)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        stream = session_stream(torch, np, tmp)
-        branches = session_branches(torch, np, tmp)
-    ok = (not stream["mismatches"] and not branches["mismatches"]
-          and not branches["continuation_mismatches"]
-          and branches["round_trip_ok"]
-          and stream["launches"]["maxmin_solve"] > 0
-          and branches["launches"]["maxmin_solve"] > 0
-          and branches["launches"]["alloc_matvec"] > 0)
-    emit({"phase": "slice session", "ok": ok, "policy": SESSION_POLICY,
-          "stream": stream, "branches": branches})
-    if not ok:
-        raise PhaseFailed("a session disagrees with the host run, or did "
-                          "not reach a kernel")
+    def finish(hosts, pool_wall):
+        s = stream_check(np, stream, hosts[0])
+        b = branches_check(np, branches, hosts[1:])
+        ok = (not s["mismatches"] and not b["mismatches"]
+              and not b["continuation_mismatches"]
+              and b["round_trip_ok"]
+              and s["launches"]["maxmin_solve"] > 0
+              and b["launches"]["maxmin_solve"] > 0
+              and b["launches"]["alloc_matvec"] > 0)
+        emit({"phase": "slice session", "ok": ok, "policy": SESSION_POLICY,
+              "host_pool_wall_s": pool_wall, "stream": s, "branches": b})
+        if not ok:
+            raise PhaseFailed("a session disagrees with the host run, or "
+                              "did not reach a kernel")
+    # the whole log's host run is the longest job: handed out first
+    checks.add("slice session", _session_host, [stream_job] + branch_jobs,
+               finish, first=True)
+    if own:
+        checks.run()
     return {"stream": stream["launches"], "branches": branches["launches"]}
 
 
@@ -1434,10 +1597,34 @@ def _chaos_session(trace, narrator_spec, **where):
     return ses
 
 
+def _scenario_host(job):
+    """A host numpy reference run of phase 4d, in a pool process:
+    ``"chaos"``, (b)'s session (its result and wall); ``"demo"`` and
+    ``"paper"``, (c)'s tuned sessions (their result fields, the tuner's
+    decisions and race walls, the wall)."""
+    _src_on_path()
+    from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
+
+    t0 = time.perf_counter()
+    if job == "demo":
+        ses, tuner, walls = _tuned_demo(alloc_backend="numpy")
+    else:
+        trace = make_trace_ir(WorkloadSpec("lublin", n_jobs=N_JOBS,
+                                           n_nodes=N_NODES, seed=0,
+                                           load=LOAD))
+        if job == "chaos":
+            res = _chaos_session(trace, CHAOS, alloc_backend="numpy").run()
+            return res, time.perf_counter() - t0
+        ses, tuner, walls = _tuned_paper(trace, alloc_backend="numpy")
+    return (_result_fields(ses.result()), tuner.decisions, walls,
+            time.perf_counter() - t0)
+
+
 def chaos_session(torch, np, tmp):
     """(b) a session under the chaos narrator on the card, stepped to its
-    500th release, saved, loaded and restored on the card: against the
-    uninterrupted card run and the host numpy run."""
+    500th release, saved, loaded and restored on the card, against the
+    uninterrupted card run.  Returns the line without its host check and
+    the host job (:func:`_scenario_host`, :func:`chaos_check`)."""
     from repro_torch.sched.session import SessionState, SimSession
     from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
 
@@ -1459,13 +1646,6 @@ def chaos_session(torch, np, tmp):
         return back, SimSession.restore(back, device="cuda").run()
 
     (back, got), split_line = _traced(torch, split)
-    t0 = time.perf_counter()
-    host = _chaos_session(trace, CHAOS, alloc_backend="numpy").run()
-    host_wall = time.perf_counter() - t0
-    a, b, h = (_result_fields(r) for r in (got, ref_card, host))
-    bad = sorted({k for k in a if a[k] != b[k] or a[k] != h[k]})
-    if not np.isfinite(got.max_stretch) or got.max_stretch < 1.0:
-        bad.append("max_stretch not finite and >= 1")
     kinds = Counter(ev.kind for ev in ses._cev)
     obs = ses.observe()
     return {"narrator": CHAOS, "narrator_seed": NARRATOR_SEED,
@@ -1481,7 +1661,19 @@ def chaos_session(torch, np, tmp):
             **_shapes(ses.engine.alloc_backend.stats),
             "split_wall_s": split_line["wall_s"],
             "split_launches": split_line["launches"],
-            "host_wall_s": host_wall, "mismatches": bad}
+            "results": (got, ref_card)}, "chaos"
+
+
+def chaos_check(np, line, host):
+    """(b)'s line with its host check: the restored run against the
+    uninterrupted card run and the host run, every ``SimResult`` field."""
+    got, ref_card = line.pop("results")
+    res, wall = host
+    a, b, h = (_result_fields(r) for r in (got, ref_card, res))
+    bad = sorted({k for k in a if a[k] != b[k] or a[k] != h[k]})
+    if not np.isfinite(got.max_stretch) or got.max_stretch < 1.0:
+        bad.append("max_stretch not finite and >= 1")
+    return {**line, "host_wall_s": wall, "mismatches": bad}
 
 
 def _timed_fires(tuner):
@@ -1541,18 +1733,15 @@ def _tune_line(ses, tuner, walls):
 
 def tuned_sessions(torch, np):
     """(c) the autotuner, its races in lockstep on the card: the reference's
-    demo, then a paper-size session under chaos, each against the host
-    numpy tuner."""
+    demo, then a paper-size session under chaos.  Returns the lines
+    without their host checks and the host jobs (:func:`_scenario_host`,
+    :func:`tune_check`)."""
     from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
 
     (ses, tuner, walls), line = _traced(torch, lambda: _tuned_demo(
         device="cuda"))
-    h_ses, h_tuner, h_walls = _tuned_demo(alloc_backend="numpy")
     demo = {**_tune_line(ses, tuner, walls), **line,
-            "host_race_wall_s": h_walls,
-            "decisions_equal": tuner.decisions == h_tuner.decisions,
-            "result_equal": (_result_fields(ses.result())
-                             == _result_fields(h_ses.result()))}
+            "card": (_result_fields(ses.result()), tuner.decisions)}
     swaps = demo["swaps"]
     demo["reference_demo_ok"] = (
         len(swaps) == 1 and swaps[0]["t"] == 6000.0
@@ -1563,25 +1752,31 @@ def tuned_sessions(torch, np):
                                        n_nodes=N_NODES, seed=0, load=LOAD))
     (ses, tuner, walls), line = _traced(torch, lambda: _tuned_paper(
         trace, device="cuda"))
-    t0 = time.perf_counter()
-    h_ses, h_tuner, h_walls = _tuned_paper(trace, alloc_backend="numpy")
     st = ses.engine.state
     paper = {**_tune_line(ses, tuner, walls), **line,
              "narrator": CHAOS_TUNED, "spec": TUNE_PAPER_SPEC,
              "until_s": TUNE_PAPER_UNTIL_S,
              "paused_widths": [st.specs[i].n_tasks
                                for i in st.in_system_indices()],
-             "host_wall_s": time.perf_counter() - t0,
-             "host_race_wall_s": h_walls,
-             "decisions_equal": tuner.decisions == h_tuner.decisions,
-             "result_equal": (_result_fields(ses.result())
-                              == _result_fields(h_ses.result()))}
-    return {"demo": demo, "paper": paper}
+             "card": (_result_fields(ses.result()), tuner.decisions)}
+    return {"demo": demo, "paper": paper}, ["demo", "paper"]
 
 
-def phase_slice_scenarios(torch, np):
+def tune_check(line, host):
+    """A tuned session's line with its host check: the host tuner's
+    decisions and result against the card's."""
+    result, decisions = line.pop("card")
+    h_result, h_decisions, h_walls, h_wall = host
+    return {**line, "host_wall_s": h_wall, "host_race_wall_s": h_walls,
+            "decisions_equal": decisions == h_decisions,
+            "result_equal": result == h_result}
+
+
+def phase_slice_scenarios(torch, np, checks=None):
     """Scenario grids on the card against the supervised host pool, a
-    record cache, a chaos session restored mid-run, and the autotuner."""
+    record cache, a chaos session restored mid-run, and the autotuner;
+    the chaos and tuner host runs go to ``checks`` (:class:`HostChecks`),
+    or run now."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -1589,10 +1784,31 @@ def phase_slice_scenarios(torch, np):
     with tempfile.TemporaryDirectory() as tmp:
         grid_part = scenario_grid(torch, np, tmp)
         emit({"phase": "slice scenarios", "part": "grid", **grid_part})
-        chaos = chaos_session(torch, np, tmp)
-        emit({"phase": "slice scenarios", "part": "chaos", **chaos})
-    tune = tuned_sessions(torch, np)
-    emit({"phase": "slice scenarios", "part": "tune", **tune})
+        chaos, chaos_job = chaos_session(torch, np, tmp)
+    tune, tune_jobs = tuned_sessions(torch, np)
+    card_s = time.perf_counter() - t0
+    launches = {"grid": grid_part["launches"],
+                "sweep": grid_part["sweep"]["first_launches"],
+                "chaos": chaos["launches"], "tune_demo": tune["demo"][
+                    "launches"], "tune_paper": tune["paper"]["launches"]}
+
+    def finish(hosts, pool_wall):
+        scenarios_check(np, grid_part, chaos, tune, tune_jobs, hosts,
+                        pool_wall, card_s)
+    defer(checks, "slice scenarios", _scenario_host,
+          [chaos_job] + tune_jobs, finish)
+    return launches
+
+
+def scenarios_check(np, grid_part, chaos, tune, tune_jobs, hosts, pool_wall,
+                    card_s):
+    """Phase 4d's (b) and (c) lines with their host checks, then the
+    phase's line."""
+    chaos = chaos_check(np, chaos, hosts[0])
+    emit({"phase": "slice scenarios", "part": "chaos", **chaos})
+    tune = {k: tune_check(tune[k], h) for k, h in zip(tune_jobs, hosts[1:])}
+    emit({"phase": "slice scenarios", "part": "tune",
+          "host_pool_wall_s": pool_wall, **tune})
     sw = grid_part["sweep"]
     demo, paper = tune["demo"], tune["paper"]
     ok = (not grid_part["mismatches"] and grid_part["quarantined"] == 0
@@ -1610,21 +1826,18 @@ def phase_slice_scenarios(torch, np):
           and demo["result_equal"] and demo["launches"]["maxmin_solve"] > 0
           and paper["decisions_equal"] and paper["result_equal"]
           and paper["launches"]["maxmin_solve"] > 0)
-    emit({"phase": "slice scenarios", "ok": ok,
-          "wall_s": time.perf_counter() - t0,
+    emit({"phase": "slice scenarios", "ok": ok, "card_parts_wall_s": card_s,
           "parts_wall_s": {"grid": grid_part["wall_s"],
                            "host_pool": grid_part["host_pool_wall_s"],
                            "sweep": sw["first_wall_s"] + sw["second_wall_s"],
                            "chaos": chaos["wall_s"],
                            "tune_demo": demo["wall_s"],
-                           "tune_paper": paper["wall_s"]}})
+                           "tune_paper": paper["wall_s"],
+                           "host_checks_pool": pool_wall}})
     if not ok:
         raise PhaseFailed("a scenario grid, the chaos session or a tuned "
                           "session disagrees with its host run, or did not "
                           "reach a kernel")
-    return {"grid": grid_part["launches"], "sweep": sw["first_launches"],
-            "chaos": chaos["launches"], "tune_demo": demo["launches"],
-            "tune_paper": paper["launches"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -2035,6 +2248,7 @@ def phase_slice_serve(torch, np, seed0):
 # --------------------------------------------------------------------------- #
 RG, RWKV, LLAMA = "recurrentgemma-2b", "rwkv6-7b", "llama3-8b"
 QWEN_MOE, DEEPSEEK = "qwen2-moe-a2.7b", "deepseek-v3-671b"
+WHISPER, INTERNVL = "whisper-large-v3", "internvl2-76b"
 # the instance each kernel must take in a served prefill and decode
 # (ops.routes): bf16 attention on the tensor cores, attn_wgmma_kernel<NVP>
 # with NVP = hdv / 64 and decode_mma_kernel<TQ, 1> for groups up to 16; the
@@ -2084,6 +2298,32 @@ SERVE_ARCHS = {
                "check_layers": 2, "check_prompt": 512, "check_seed": 2414,
                "serve_layers": 4, "requests": 4, "max_new": 16,
                "seed": 91},
+    # the encoder-decoder at full size (32 + 32 layers, 20 heads over 20
+    # of 64: prefill attention on wgmma<1>, a decode group of one), served
+    # as its users run it: a request's 1,500 encoder frames (30 s of audio)
+    # encoded, then its prompt prefilled into its slot with the frames'
+    # cross K/V, then decode over the 4 slots; prompts of 64-384 tokens,
+    # a cache of 512; its model check 2 + 2 layers deep with a 256-token
+    # prompt
+    WHISPER: {"kernels": ("flash_attention", "flash_decode"),
+              "routes": {"flash_attention": {"prefill": "wgmma<1>"},
+                         "flash_decode": {"decode": "mma<1>"}},
+              "frames": 1500, "check_cut": {"encoder_layers": 2},
+              "check_layers": 2, "check_prompt": 256, "check_seed": 2416,
+              "cache_len": 512, "prompt_range": (64, 385),
+              "max_new": 64, "seed": 92},
+    # the vision stub at full width (64 query heads over 8 of 128: wgmma<2>
+    # and a decode group of 8 on mma<1>), cut to 8 of its 80 layers (the
+    # whole model, about 141 GB in bf16, does not fit one card); each
+    # request's first 256 token embeddings replaced by 256 seeded patch
+    # embeddings; one wave of 4 requests of 1,024-2,000 tokens in all, 32
+    # new tokens; its model check 2 layers deep, 256 patches + 256 tokens
+    INTERNVL: {"kernels": ("flash_attention", "flash_decode"),
+               "routes": {"flash_attention": {"prefill": "wgmma<2>"},
+                          "flash_decode": {"decode": "mma<1>"}},
+               "patches": 256, "check_layers": 2, "check_prompt": 512,
+               "check_seed": 2417, "serve_layers": 8, "requests": 4,
+               "max_new": 32, "seed": 93},
 }
 # the other dense decoders: model checks only (full width, 2 layers), for
 # qk_norm (Qwen3-8B), a group of 3 at head dim 64 (SmolLM-360M) and tied
@@ -2260,6 +2500,8 @@ def decode_check(torch, gen, dt, case, timed=False):
            "shape": [B, S, H, Hkv, hd, hdv], "lens": lens,
            "max_abs_err": _err(got, want),
            "ok": got.dtype == qdt and _within(torch, got, want, tol, tol)}
+    if S == 0:                 # no key: exactly 0, and so is the plain one
+        out["ok"] = out["ok"] and not got.any() and not want.any()
     if timed and qdt == dt:
         valid = torch.clamp(cur + 1, max=S)
         mask = (torch.arange(S, device="cuda")[None, :]
@@ -2363,9 +2605,48 @@ def phase_serve_kernels(torch):
         checks.append(decode_check(
             torch, gen, dt, ("qwen2_moe_decode_g1", 4, 4096, 16, 16, 128,
                              128, dt, [0, 1537, 4095, 5000]), timed=True))
+    # Whisper's (20 over 20 heads of 64) and InternVL2's (64 over 8 of
+    # 128), fp32 and bf16, each timed beside SDPA: the encoder's 1,500
+    # frames (bidirectional), a decoder prompt (causal), cross-attention
+    # prefill (non-causal, 300 queries against 1,500 frames: both ragged
+    # against a 64-key tile), decode over a 512-slot cache and over the
+    # 1,500 cross frames (cur_len = S_enc), and InternVL2's prefill of
+    # 1,500 tokens and decode over 4,096 slots; then a decode over an empty
+    # cache (S = 0, the mirrored server's cross cache), which must give 0
+    for dt in (torch.float32, bf):
+        for case in [
+                ("whisper_encoder", 1, 1500, 1500, 20, 20, 64, 64, False, 0,
+                 0),
+                ("whisper_decoder_prompt", 1, 384, 384, 20, 20, 64, 64,
+                 True, 0, 0),
+                ("whisper_cross_prefill", 1, 300, 1500, 20, 20, 64, 64,
+                 False, 0, 0),
+                ("internvl2_prefill", 1, 1500, 1500, 64, 8, 128, 128, True,
+                 0, 0)]:
+            checks.append(prefill_check(torch, gen, dt, case, timed=True))
+        for case in [
+                ("whisper_decode_g1", 4, 512, 20, 20, 64, 64, dt,
+                 [0, 200, 447, 600]),
+                ("whisper_cross_decode", 4, 1500, 20, 20, 64, 64, dt,
+                 [1500] * 4),
+                ("internvl2_decode_g8", 4, 4096, 64, 8, 128, 128, dt,
+                 [1000, 1600, 2047, 5000])]:
+            checks.append(decode_check(torch, gen, dt, case, timed=True))
+        for qdt in (dt, torch.float32):
+            checks.append(decode_check(
+                torch, gen, dt, ("empty_cache", 4, 0, 20, 20, 64, 64, qdt,
+                                 [0] * 4)))
     want = {("mla_hd192_hdv128", "bfloat16"): "wgmma<2>",
             ("qwen2_moe_prefill", "bfloat16"): "wgmma<2>",
-            ("qwen2_moe_decode_g1", "bfloat16"): "mma<1>"}
+            ("qwen2_moe_decode_g1", "bfloat16"): "mma<1>",
+            ("whisper_encoder", "bfloat16"): "wgmma<1>",
+            ("whisper_decoder_prompt", "bfloat16"): "wgmma<1>",
+            ("whisper_cross_prefill", "bfloat16"): "wgmma<1>",
+            ("internvl2_prefill", "bfloat16"): "wgmma<2>",
+            ("whisper_decode_g1", "bfloat16"): "mma<1>",
+            ("whisper_cross_decode", "bfloat16"): "mma<1>",
+            ("internvl2_decode_g8", "bfloat16"): "mma<1>",
+            ("empty_cache", "bfloat16"): "mma<1>"}
     for c in checks:
         dt_name = c["dtype"] if c["kernel"] == "flash_attention" \
             else c["dtype"][1]
@@ -2464,8 +2745,12 @@ def phase_model_check(torch, np, arch, spec):
     card (kernels) and on the host CPU (plain versions), the host's greedy
     picks fed to both, logits compared; once a cache type of
     ``check_caches`` (an int8 cache: the quantized KV layout on both
-    sides), one line each.  ``spec["cut"]`` changes more of the config
-    (DeepSeek-V3: no MTP depth).  Where the cut has MoE layers, each
+    sides), one line each.  ``spec["cut"]`` and ``spec["check_cut"]``
+    change more of the config (DeepSeek-V3: no MTP depth; Whisper: 2
+    encoder layers).  An encoder-decoder encodes ``spec["frames"]`` seeded
+    frame embeddings (0.02 x normal) into a cross cache of as many frames;
+    a vision config's first ``spec["patches"]`` tokens take seeded patch
+    embeddings.  Where the cut has MoE layers, each
     side's routing is recorded (:class:`routing_recorder`) and compared
     (:func:`routing_report`): a routing flip passes only on a near-tie of
     the host, and the logits are held to the tolerance at every step
@@ -2478,9 +2763,11 @@ def phase_model_check(torch, np, arch, spec):
     from repro_torch.models.config import MOE, layer_plan
 
     cfg = dataclasses.replace(get_config(arch), n_layers=spec["check_layers"],
-                              **spec.get("cut", {}))
+                              **spec.get("cut", {}),
+                              **spec.get("check_cut", {}))
     n_moe = sum(b.mlp == MOE for b in layer_plan(cfg))
     n_prompt = spec["check_prompt"]
+    extras = frontend_inputs(torch, np, spec, cfg, spec["check_seed"])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(spec["check_seed"])
     t0 = time.perf_counter()
@@ -2496,12 +2783,14 @@ def phase_model_check(torch, np, arch, spec):
         own greedy picks).  Returns the logits of every step on the host,
         the tokens fed, the seconds taken and the routing of each MoE
         call."""
-        caches = backbone.init_cache(cfg, 1, CHECK_CACHE, dtype=cache_dtype,
-                                     device=device)
+        caches = backbone.init_cache(cfg, 1, CHECK_CACHE,
+                                     S_enc=spec.get("frames", 0),
+                                     dtype=cache_dtype, device=device)
+        batch = {"tokens": prompt.to(device),
+                 **{k: v.to(device) for k, v in extras.items()}}
         with routing_recorder(torch) as routing:
             t = time.perf_counter()
-            logits, caches = backbone.prefill(
-                cfg, params, {"tokens": prompt.to(device)}, caches)
+            logits, caches = backbone.prefill(cfg, params, batch, caches)
             out, fed = [logits.float().cpu()], []
             for i in range(CHECK_STEPS):
                 tok = (feed[i] if feed is not None
@@ -2538,6 +2827,9 @@ def phase_model_check(torch, np, arch, spec):
               and all(v > 0 for v in launches.values()))
         emit({"phase": "model check", "ok": ok, "arch": arch,
               "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "encoder_layers": cfg.encoder_layers,
+              "frames": spec.get("frames", 0),
+              "patches": spec.get("patches", 0),
               "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
               "vocab": cfg.vocab, "qk_norm": cfg.qk_norm,
               "tie_embeddings": cfg.tie_embeddings, "dtype": "float32",
@@ -2557,6 +2849,24 @@ def phase_model_check(torch, np, arch, spec):
                               f"({arch}, {cache_name} cache)")
     del host, card
     torch.cuda.empty_cache()
+
+
+def frontend_inputs(torch, np, spec, cfg, seed, batch=1):
+    """The stub frontends' inputs of one batch, on the host, drawn with
+    numpy from ``seed`` (0.02 x normal, as the data source draws them):
+    ``enc_embeds`` of ``spec["frames"]`` frames for an encoder-decoder,
+    ``vision_embeds`` of ``spec["patches"]`` patches for a vision
+    config."""
+    rng = np.random.default_rng([seed, 1])
+    out = {}
+    if cfg.is_encdec:
+        out["enc_embeds"] = 0.02 * rng.standard_normal(
+            (batch, spec["frames"], cfg.d_model))
+    if cfg.frontend == "vision":
+        out["vision_embeds"] = 0.02 * rng.standard_normal(
+            (batch, spec["patches"], cfg.d_model))
+    return {k: torch.as_tensor(v, dtype=torch.float32)
+            for k, v in out.items()}
 
 
 class routing_recorder:
@@ -2646,13 +2956,30 @@ def phase_serve(torch, np, arch):
 
     class TimedServer(BatchedServer):
         """The server, with each prefill and decode step synchronised and
-        timed, and its logits checked for finite values."""
+        timed, and its logits checked for finite values.  With
+        ``inputs`` (one dict a request, in submission order), each
+        admission's prefill takes the next request's frontend inputs, as a
+        user's request carries them (the reference's server has none: it
+        encodes 8 zero frames into an empty cross cache, which decode then
+        reads, and refuses a vision config), into caches of ``S_enc``
+        cross frames."""
 
-        def __init__(self, *args, **kw):
+        def __init__(self, *args, inputs=None, S_enc=0, **kw):
             super().__init__(*args, **kw)
+            if S_enc:
+                self.caches = backbone.init_cache(
+                    self.cfg, self.scfg.slots, self.scfg.cache_len,
+                    S_enc=S_enc, device=self.device)
+            self.inputs = inputs
             self.prefill_s = self.decode_s = 0.0
             self.prefills = self.prefill_tokens = self.decode_steps = 0
             self.finite = True
+
+        def _prefill_with_inputs(self, tokens, caches_slot, true_len):
+            batch = {"tokens": tokens[None, :], **self.inputs.pop(0)}
+            logits, caches = backbone.prefill(self.cfg, self.params, batch,
+                                              caches_slot)
+            return logits[0], caches
 
         def _timed(self, fn, *args):
             torch.cuda.synchronize()
@@ -2662,8 +2989,10 @@ def phase_serve(torch, np, arch):
             return logits, caches, time.perf_counter() - t0
 
         def _prefill_impl(self, tokens, caches_slot, true_len):
-            logits, caches, dt = self._timed(super()._prefill_impl, tokens,
-                                             caches_slot, true_len)
+            fn = (super()._prefill_impl if self.inputs is None
+                  else self._prefill_with_inputs)
+            logits, caches, dt = self._timed(fn, tokens, caches_slot,
+                                             true_len)
             self.prefill_s += dt
             self.prefills += 1
             self.prefill_tokens += true_len
@@ -2679,6 +3008,8 @@ def phase_serve(torch, np, arch):
     spec = SERVE_ARCHS[arch]
     seed, max_new = spec["seed"], spec["max_new"]
     n_requests = spec.get("requests", SERVE_REQUESTS)
+    cache_len = spec.get("cache_len", SERVE_CACHE)
+    S_enc = spec.get("frames", 0)
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=spec.get("serve_layers",
                                                      cfg.n_layers),
@@ -2692,31 +3023,50 @@ def phase_serve(torch, np, arch):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    srv = TimedServer(cfg, params, ServeConfig(
-        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, seed=seed), device="cuda")
     rng = np.random.default_rng(seed)
-    lens = rng.integers(1024, 2001, n_requests)
+    lens = rng.integers(*spec.get("prompt_range", (1024, 2001)), n_requests)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=int(n)),
                     max_new=max_new) for i, n in enumerate(lens)]
-    for r in reqs:
-        srv.submit(r)
+    # each request's frontend inputs (frames or patches), drawn on the card
+    inputs = None
+    if S_enc or spec.get("patches"):
+        key, n_in = (("enc_embeds", S_enc) if S_enc
+                     else ("vision_embeds", spec["patches"]))
+        inputs = [{key: 0.02 * torch.randn((1, n_in, cfg.d_model),
+                                           generator=gen, device="cuda")}
+                  for _ in reqs]
+
+    def server(requests):
+        srv = TimedServer(cfg, params, ServeConfig(
+            slots=SERVE_SLOTS, cache_len=cache_len, seed=seed),
+            device="cuda", S_enc=S_enc,
+            inputs=None if inputs is None else [inputs[r.rid]
+                                                for r in requests])
+        for r in requests:
+            srv.submit(Request(rid=r.rid, prompt=r.prompt,
+                               max_new=r.max_new))
+        return srv
+
+    srv = server(reqs)
+    reqs = srv.queue[:]
+    timed_encode = encode_timer(torch, backbone)
     ops.reset_launches()
     t0 = time.perf_counter()
     steps = decode_tokens = 0
-    while srv.queue or any(r is not None for r in srv.slot_req):
-        decode_tokens += srv.step()
-        steps += 1
-        if steps > 10_000:
-            raise PhaseFailed("the serve loop did not drain")
+    with timed_encode:
+        while srv.queue or any(r is not None for r in srv.slot_req):
+            decode_tokens += srv.step()
+            steps += 1
+            if steps > 10_000:
+                raise PhaseFailed("the serve loop did not drain")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: ops.launches[k] for k in spec["kernels"]}
-    # a kernel runs once a layer of its kinds a call: every prefill on the
+    # a kernel runs a fixed number of times a call: every prefill on the
     # instance spec["routes"] names for prefill, every decode step on the
     # one it names for decode
     routes = {k: dict(ops.routes[k]) for k in spec["kernels"]}
-    per_call = {k: sum(b.kind in _KINDS[k] for b in layer_plan(cfg))
-                for k in spec["kernels"]}
+    per_call = {k: kernel_calls(cfg, k) for k in spec["kernels"]}
     calls = {"prefill": srv.prefills, "decode": srv.decode_steps}
     expected = {k: {name: calls[when] * per_call[k]
                     for when, name in spec["routes"][k].items()}
@@ -2732,10 +3082,7 @@ def phase_serve(torch, np, arch):
     # prompts and lengths) replayed on a fresh server under the profiler,
     # for the card's busy share and kernel time by name; every other number
     # here comes from the untraced run above.
-    tsrv = TimedServer(cfg, params, ServeConfig(
-        slots=SERVE_SLOTS, cache_len=SERVE_CACHE, seed=seed), device="cuda")
-    for r in reqs[-SERVE_SLOTS:]:
-        tsrv.submit(Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new))
+    tsrv = server(reqs[-SERVE_SLOTS:])
     torch.cuda.synchronize()
     prof, trace_error = start_device_trace(torch)
     t1 = time.perf_counter()
@@ -2753,17 +3100,24 @@ def phase_serve(torch, np, arch):
     # untimed step of the plain server, so the timings above stay as run)
     step_ops = host_ops(torch, lambda: BatchedServer._decode_impl(
         srv, torch.zeros(SERVE_SLOTS, dtype=torch.int64, device="cuda"),
-        srv.caches, torch.full((SERVE_SLOTS,), SERVE_CACHE // 2,
+        srv.caches, torch.full((SERVE_SLOTS,), cache_len // 2,
                                device="cuda")))
     ok = (finished and srv.finite and wrapped != 0 and routes_ok
           and all(v > 0 for v in launches.values()))
+    extra = {}
+    if cfg.is_encdec:
+        extra = encdec_fields(cfg, params, srv.caches, timed_encode)
+        extra["launch_serve"] = launch_serve_cli(arch)
+        ok = ok and extra["launch_serve"]["ok"]
+    if spec.get("patches"):
+        extra = {"patches": spec["patches"]}
     emit({"phase": "serve", "ok": ok, "arch": arch,
           "layers": cfg.n_layers, "params": sum(
               t.numel() for t in _leaves(params)),
           "param_count": cfg.param_count(),
           **moe_read_fields(cfg, params),
           "dtype": "bfloat16", "cache_dtype": "bfloat16",
-          "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+          "slots": SERVE_SLOTS, "cache_len": cache_len,
           "requests": n_requests, "max_new": max_new, "seed": seed,
           "prompt_lens": lens.tolist(), "requests_past_window": wrapped,
           "all_finished": finished, "logits_finite": srv.finite,
@@ -2780,15 +3134,113 @@ def phase_serve(torch, np, arch):
           "routes": routes, "expected_routes": expected,
           "prefills": srv.prefills, "layers_per_call": per_call,
           "first_outputs": [r.out[:8] for r in reqs[:2]],
-          "traced_window": trace})
+          **extra, "traced_window": trace})
     if not ok:
         raise PhaseFailed("a request did not finish, a logit was not "
                           "finite, no request wrapped the window, a "
-                          f"kernel of {arch} was not launched, or a "
-                          "kernel ran a call on the wrong instance")
+                          f"kernel of {arch} was not launched, a "
+                          "kernel ran a call on the wrong instance, or the "
+                          "serving launcher failed")
     del srv, params
     torch.cuda.empty_cache()
     return launches, lens, routes
+
+
+def kernel_calls(cfg, kernel):
+    """Launches of an attention or recurrence kernel in one prefill (the
+    prefill kernels) or one decode step (the decode kernels): one a layer
+    of its kinds, one more a cross-attention layer, and the encoder's
+    layers for prefill attention."""
+    from repro_torch.models.config import layer_plan
+
+    plan = layer_plan(cfg)
+    n = sum(b.kind in _KINDS[kernel] for b in plan)
+    if kernel in ("flash_attention", "flash_decode"):
+        n += sum(b.cross_attn for b in plan)
+    if kernel == "flash_attention":
+        n += cfg.encoder_layers
+    return n
+
+
+class encode_timer:
+    """Within its block, ``backbone.encode`` (which ``backbone.prefill``
+    calls through the module) runs synchronised and timed: its calls,
+    frames and seconds."""
+
+    def __init__(self, torch, backbone):
+        self.torch, self.backbone = torch, backbone
+        self.calls = self.frames = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        torch, self.encode = self.torch, self.backbone.encode
+
+        def timed(cfg, params, enc_embeds, remat=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.encode(cfg, params, enc_embeds, remat=remat)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.frames += enc_embeds.shape[0] * enc_embeds.shape[1]
+            return out
+        self.backbone.encode = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.backbone.encode = self.encode
+
+
+def encdec_fields(cfg, params, caches, timed):
+    """An encoder-decoder serve's own figures: the encoder's frames a
+    second against the least time its operations take on the bf16 tensor
+    cores (the projections and MLP, 2 flops a weight a frame, and
+    non-causal attention, 4 hd flops a (frame, frame) pair a head); the
+    bytes a decode step must read, the decoder's weights (all but the
+    encoder's) and every slot's cross K/V, over 3.35 TB/s."""
+    D, F, H, Hkv, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim)
+    per_layer = 2 * (D * (H + 2 * Hkv) * hd + H * hd * D + 2 * D * F)
+    S = timed.frames // max(timed.calls, 1)
+    ops_ = cfg.encoder_layers * timed.frames * (per_layer + 4 * hd * H * S)
+    enc_bytes = sum(t.numel() * t.element_size()
+                    for t in _leaves(params["enc"]))
+    dec_bytes = sum(t.numel() * t.element_size()
+                    for t in _leaves(params)) - enc_bytes
+    cross_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c["cross"].values())
+    return {"encoder_layers": cfg.encoder_layers, "frames": S,
+            "encode_calls": timed.calls, "encode_s": timed.seconds,
+            "encoder_frames_per_s": timed.frames / timed.seconds,
+            "encoder_bound_ms_a_request": bound_ms(
+                enc_bytes, ops_ // max(timed.calls, 1),
+                BF16_TC_OPS_PER_S)[0],
+            "encoder_ms_a_request": timed.seconds / timed.calls * 1e3,
+            "decoder_weight_bytes": dec_bytes, "cross_kv_bytes": cross_bytes,
+            "step_read_bytes": dec_bytes + cross_bytes,
+            "step_read_bound_ms": (dec_bytes + cross_bytes)
+            / HBM_BYTES_PER_S * 1e3}
+
+
+def launch_serve_cli(arch):
+    """``python -m repro_torch.launch.serve --arch <arch> --requests 4
+    --slots 4 --max-new 16`` as a process on the card (the launcher's
+    server, as the reference's: 8 zero frames into an empty cross cache
+    for an encoder-decoder); it must exit 0 having served every
+    request."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--requests", "4", "--slots", "4", "--max-new", "16"],
+        capture_output=True, text=True, timeout=600, env=_cli_env(),
+        cwd=str(ROOT))
+    out = proc.stdout.strip().splitlines()
+    return {"returncode": proc.returncode,
+            "wall_s": time.perf_counter() - t0,
+            "summary": out[0] if out else None,
+            "stderr_tail": proc.stderr[-600:] if proc.returncode else "",
+            "ok": proc.returncode == 0
+            and bool(out) and out[0].startswith("[serve] 4/4 requests")}
 
 
 def moe_read_fields(cfg, params):
@@ -2846,20 +3298,20 @@ def attention_fields(torch, np, arch, launches, prompt_lens, functions,
     them (bf16, as served), inputs drawn from ``gen``: one prefill of the
     median served prompt under the arch's window, if any, and one decode
     step of the four slots at mid-run positions (the first four prompts
-    plus half the new tokens) over a layer's cache (the window, or
-    SERVE_CACHE slots).  Each against its plain version and SDPA (the
+    plus half the new tokens) over a layer's cache (the window, or the
+    serve's cache length).  Each against its plain version and SDPA (the
     backend it took named), timed with both, beside its bound.  An MLA
     arch calls prefill attention with per-head keys of qk_nope + qk_rope
     and values of v_head_dim, scaled by 1/sqrt(qk head dim), and decodes
-    with no kernel.  Returns the fields of the two entries (the decode's
-    None for MLA)."""
-    import torch.nn.functional as F
-
+    with no kernel.  An encoder-decoder's entries carry its other shapes
+    beside them: prefill attention over the encoder's frames
+    (``"encoder"``, bidirectional) and the median prompt's cross-attention
+    to them (``"cross"``), and a decode step's cross-attention over every
+    frame (``"cross"``).  Returns the fields of the two entries (the
+    decode's None for MLA)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (
-        attention_route, decode_route, flash_attention_cuda,
-        flash_attention_plain, flash_decode_cuda, flash_decode_plain)
 
+    spec = SERVE_ARCHS[arch]
     cfg = get_config(arch)
     H, Hkv, hd, hdv, win = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                             cfg.head_dim, cfg.window)
@@ -2868,40 +3320,68 @@ def attention_fields(torch, np, arch, launches, prompt_lens, functions,
         Hkv, hd, hdv = H, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, \
             cfg.v_head_dim
         scale = 1.0 / hd ** 0.5
-    bf = torch.bfloat16
-    kw = dict(causal=True, window=win, scale=scale)
-
-    # ---- flash attention: one prefill of the median prompt ----------------
     L = int(np.median(prompt_lens))
-    q = _randn(torch, gen, (1, L, H, hd), bf)
-    k = _randn(torch, gen, (1, L, Hkv, hd), bf)
-    v = _randn(torch, gen, (1, L, Hkv, hdv), bf)
+    heads = (H, Hkv, hd, hdv)
+    prefill = _prefill_fields(torch, gen, L, L, heads, True, win, scale,
+                              launches["flash_attention"], functions, hgmma)
+    if cfg.mla:
+        return prefill, None
+    cache_len = spec.get("cache_len", SERVE_CACHE)
+    S = min(cache_len, win) if win else cache_len
+    lens = [int(n) + spec["max_new"] // 2 for n in prompt_lens[:SERVE_SLOTS]]
+    decode = _decode_fields(torch, gen, S, heads, lens,
+                            launches["flash_decode"], functions)
+    F = spec.get("frames", 0)
+    if F:
+        prefill["encoder"] = _prefill_fields(
+            torch, gen, F, F, heads, False, 0, None, None, functions, hgmma)
+        prefill["cross"] = _prefill_fields(
+            torch, gen, L, F, heads, False, 0, None, None, functions, hgmma)
+        decode["cross"] = _decode_fields(torch, gen, F, heads,
+                                         [F] * SERVE_SLOTS, None, functions)
+    return prefill, decode
+
+
+def _prefill_fields(torch, gen, Lq, Lk, heads, causal, win, scale, launches,
+                    functions, hgmma):
+    """One bf16 prefill attention call (1, Lq queries, Lk keys) against its
+    plain version and SDPA, timed, beside its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        attention_route, flash_attention_cuda, flash_attention_plain)
+    H, Hkv, hd, hdv = heads
+    bf = torch.bfloat16
+    kw = dict(causal=causal, window=win, scale=scale)
+    q = _randn(torch, gen, (1, Lq, H, hd), bf)
+    k = _randn(torch, gen, (1, Lk, Hkv, hd), bf)
+    v = _randn(torch, gen, (1, Lk, Hkv, hdv), bf)
     got = flash_attention_cuda(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if win:
-        pos = torch.arange(L, device="cuda")
+        pos = torch.arange(Lq, device="cuda")
         sdpa_kw = dict(attn_mask=((pos[None, :] <= pos[:, None])
                                   & (pos[None, :] > pos[:, None] - win)),
-                       enable_gqa=True)
+                       enable_gqa=H != Hkv)
     else:
-        sdpa_kw = dict(is_causal=True, enable_gqa=True, scale=scale)
+        sdpa_kw = dict(is_causal=causal, enable_gqa=H != Hkv, scale=scale)
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
     backend = sdpa_backend(torch, qt, kt, vt, **sdpa_kw)
     lib_out = sdpa().transpose(1, 2)
-    pairs = attention_pairs(L, L, True, win)
-    n_bytes = 2 * (L * H * (hd + hdv) + L * Hkv * (hd + hdv))
+    pairs = attention_pairs(Lq, Lk, causal, win)
+    n_bytes = 2 * (Lq * H * (hd + hdv) + Lk * Hkv * (hd + hdv))
     n_ops = 2 * (hd + hdv) * H * pairs
     fa_bound, fa_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
-    prefill = {
-        "launches": launches["flash_attention"],
+    out = {
         "instance": attention_instances(functions, attention_route(q, k, v),
                                         q, v, H // Hkv, decode=False,
                                         hgmma=hgmma),
-        "shape": [1, L, H, Hkv, hd] + ([hdv] if hdv != hd else []),
-        "dtype": "bfloat16", "window": win, "scale": scale,
+        "shape": [1, Lq, H, Hkv, hd] + ([hdv] if hdv != hd else [])
+        + ([Lk] if Lk != Lq else []),
+        "causal": causal, "dtype": "bfloat16", "window": win, "scale": scale,
         "max_abs_err": _err(got, want),
         "library_max_abs_diff": _err(got, lib_out),
         "ms": device_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw),
@@ -2919,14 +3399,20 @@ def attention_fields(torch, np, arch, launches, prompt_lens, functions,
         "bound_ms_fp32_cuda_cores": bound_ms(n_bytes, n_ops,
                                              FP32_OPS_PER_S)[0],
     }
-    if cfg.mla:
-        return prefill, None
+    return out if launches is None else {"launches": launches, **out}
 
-    # ---- flash decode: the four slots at mid-run positions ----------------
-    S = min(SERVE_CACHE, win) if win else SERVE_CACHE
-    B = SERVE_SLOTS
-    lens_list = [int(n) + SERVE_ARCHS[arch]["max_new"] // 2
-                 for n in prompt_lens[:B]]
+
+def _decode_fields(torch, gen, S, heads, lens_list, launches, functions):
+    """One bf16 decode step of len(lens_list) slots over a cache of S slots
+    against its plain version and SDPA (the valid slots as a mask),
+    timed, beside its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        decode_route, flash_decode_cuda, flash_decode_plain)
+    H, Hkv, hd, _ = heads
+    bf = torch.bfloat16
+    B = len(lens_list)
     lens = torch.tensor(lens_list, device="cuda")
     q = _randn(torch, gen, (B, H, hd), bf)
     kc = _randn(torch, gen, (B, S, Hkv, hd), bf)
@@ -2937,17 +3423,16 @@ def attention_fields(torch, np, arch, launches, prompt_lens, functions,
     dmask = (torch.arange(S, device="cuda")[None, :]
              < torch.tensor(valid, device="cuda")[:, None])[:, None, None, :]
     qd, kd, vd = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    sdpa_kw = dict(attn_mask=dmask, enable_gqa=H != Hkv)
 
     def sdpa_decode():
-        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(qd, kd, vd, **sdpa_kw)
     lib_out = sdpa_decode()[:, :, 0]
     # the bytes of the slots read (each request's valid keys and values)
     n_bytes = 2 * (2 * B * H * hd + sum(valid) * Hkv * 2 * hd)
     n_ops = 4 * hd * H * sum(valid)
     fd_bound, fd_by = bound_ms(n_bytes, n_ops, BF16_TC_OPS_PER_S)
-    decode = {
-        "launches": launches["flash_decode"],
+    out = {
         "instance": attention_instances(functions, decode_route(q, kc, vc),
                                         q, vc, H // Hkv, decode=True),
         "shape": [B, S, H, Hkv, hd], "lens": lens_list, "dtype": "bfloat16",
@@ -2962,18 +3447,19 @@ def attention_fields(torch, np, arch, launches, prompt_lens, functions,
         "device_us_by_kernel": device_us_by_kernel(
             torch, lambda: flash_decode_cuda(q, kc, vc, lens), 200),
         "library": "F.scaled_dot_product_attention",
-        **sdpa_backend(torch, qd, kd, vd, attn_mask=dmask, enable_gqa=True),
+        **sdpa_backend(torch, qd, kd, vd, **sdpa_kw),
         "library_ms": device_ms(torch, sdpa_decode, 200),
         "bound_ms": fd_bound, "bound_by": fd_by,
         "bound_rate": "HBM 3.35 TB/s; bf16 tensor cores 989 TFLOP/s",
     }
-    return prefill, decode
+    return out if launches is None else {"launches": launches, **out}
 
 
 # the kernels line's sub-entries: each served arch's shapes beside
 # RecurrentGemma-2B's
 _SUB_ENTRY = {LLAMA: "llama3_8b", QWEN_MOE: "qwen2_moe_a2_7b",
-              DEEPSEEK: "deepseek_v3_671b"}
+              DEEPSEEK: "deepseek_v3_671b", WHISPER: "whisper_large_v3",
+              INTERNVL: "internvl2_76b"}
 
 
 def serve_kernel_entries(torch, np, served, functions, hgmma,
@@ -3003,7 +3489,8 @@ def serve_kernel_entries(torch, np, served, functions, hgmma,
         {"name": "flash_decode", **fixed,
          "replaces": "src/repro/kernels/flash_attention.py:162", **decode}]
     L = int(np.median(prompt_lens))
-    for arch, seed in ((LLAMA, 14), (QWEN_MOE, 15), (DEEPSEEK, 16)):
+    for arch, seed in ((LLAMA, 14), (QWEN_MOE, 15), (DEEPSEEK, 16),
+                       (WHISPER, 17), (INTERNVL, 18)):
         agen = torch.Generator(device="cuda")
         agen.manual_seed(seed)
         a_launches, a_lens, a_routes = served[arch]
@@ -3039,9 +3526,12 @@ def serve_kernel_entries(torch, np, served, functions, hgmma,
          "dtype": "float32"})
     tol = {"flash_attention": TOL["bfloat16"], "flash_decode": TOL["bfloat16"],
            "rglru_scan": RGLRU_ATOL}
+    subs = [e[k] for e in entries for k in _SUB_ENTRY.values() if k in e]
     ok = all(f["launches"] > 0 and f["max_abs_err"] <= tol[e["name"]]
              for e in entries
              for f in [e] + [e[k] for k in _SUB_ENTRY.values() if k in e])
+    ok = ok and all(f[k]["max_abs_err"] <= TOL["bfloat16"]
+                    for f in subs for k in ("encoder", "cross") if k in f)
     return entries, ok
 
 
@@ -3709,14 +4199,19 @@ def main() -> int:
         usage_paper = phase_kernels(torch, np)
         phase = "allocator"
         phase_allocator(torch, np)
+        # phases 4-4d on the card, then their host reference runs in one
+        # pool of processes and each phase's check (and line) in order
+        checks = HostChecks()
         phase = "slice"
-        launches, stats, seed0 = phase_slice(torch, np)
+        launches, stats, _ = phase_slice(torch, np, checks)
         phase = "slice mcb8"
-        phase_slice_mcb8(torch, np)
+        phase_slice_mcb8(torch, np, checks)
         phase = "slice session"
-        session_launches = phase_slice_session(torch, np)
+        session_launches = phase_slice_session(torch, np, checks)
         phase = "slice scenarios"
-        scenario_launches = phase_slice_scenarios(torch, np)
+        scenario_launches = phase_slice_scenarios(torch, np, checks)
+        phase = "slice host checks"
+        seed0 = checks.run()["slice"]
         phase = "slice serve"
         serve_launches = phase_slice_serve(torch, np, seed0)
         phase = "serve kernels"

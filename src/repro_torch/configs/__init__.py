@@ -1,13 +1,12 @@
 """Architecture configs the port serves (one module per arch), and the
 shape registry.
 
-A trimmed copy of the JAX package's ``configs`` registry: only the
-architectures whose blocks the port has ported are registered, in the
-reference's order.  Every config mirrors the published architecture
+A copy of the JAX package's ``configs`` registry: all ten architectures,
+in the reference's order.  Every config mirrors the published architecture
 exactly (its source is in its module's docstring).  ``get_config(name)``
 returns the full config, ``get_reduced`` the small same-family config the
-CPU tests use, and ``SHAPES`` the assigned input-shape set.  Unknown names,
-and the reference's archs still to come, raise ``KeyError``.
+CPU tests use, and ``SHAPES`` the assigned input-shape set.  Unknown names
+raise ``KeyError``.
 """
 from __future__ import annotations
 
@@ -28,11 +27,13 @@ ARCHS: Tuple[str, ...] = (
     "smollm_360m",
     "llama3_8b",
     "rwkv6_7b",
+    "whisper_large_v3",
     "recurrentgemma_2b",
+    "internvl2_76b",
 )
 
 # canonical dashed ids (CLI) -> module names, with the reference's extra
-# spellings (some name archs still to come, which get_config refuses)
+# spellings
 ALIASES: Dict[str, str] = {a.replace("_", "-"): a for a in ARCHS}
 ALIASES.update({
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
@@ -62,9 +63,7 @@ SHAPES: Dict[str, ShapeSpec] = {
 def get_config(name: str) -> ModelConfig:
     mod_name = ALIASES.get(name, name).replace("-", "_")
     if mod_name not in ARCHS:
-        known = sorted(a for a, m in ALIASES.items() if m in ARCHS)
-        raise KeyError(f"unknown arch {name!r} for the port; known: "
-                       f"{known} (ROADMAP.md lists the rest)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ALIASES)}")
     mod = importlib.import_module(f".{mod_name}", __package__)
     return mod.CONFIG
 
@@ -82,6 +81,6 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
 
 
 def all_cells() -> List[Tuple[str, str]]:
-    """Every (arch, shape) cell of the port's archs, inapplicable ones
-    included, in the reference's order."""
+    """All 40 assigned (arch, shape) cells, inapplicable ones included, in
+    the reference's order."""
     return [(a, s) for a in ARCHS for s in SHAPES]

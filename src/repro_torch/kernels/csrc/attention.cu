@@ -62,6 +62,9 @@
 //    - A block of 256 threads owns (request, KV head, a split of the
 //      keys); the splits put two blocks on every SM whatever the batch
 //      (flash-decoding), and a split with no valid key exits at once.
+//      An empty cache (S = 0: an encoder-decoder's cross cache that holds
+//      no frame) is one split with no chunk, whose block writes 0: the
+//      accumulator stays 0 and is scaled by 1 / max(l, 1e-30).
 //    - The cache stays bf16 in shared memory, in chunks of 32 keys through
 //      a two-stage cp.async ring, K and V as separate groups, so V lands
 //      while the scores are computed and the next chunk is in flight.

@@ -6,9 +6,14 @@
         --requests 8 --slots 4 --cache-len 4096 --max-new 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
         --requests 8 --slots 4 --cache-len 4096 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
+        --requests 4 --slots 4 --max-new 16
 
 Runs on the card unless ``--device cpu``; parameters are random, drawn
-from ``--seed``.
+from ``--seed``.  An encoder-decoder serves as the reference's server
+does, its prefill encoding 8 zero frames into an empty cross cache; a
+vision config raises ``KeyError('vision_embeds')``, as there
+(``train/serve.py``).
 """
 from __future__ import annotations
 

@@ -17,11 +17,10 @@ filled.
 ``<kind>_cache(cfg, B, S, dtype, device)`` — zeroed per-layer cache dict.
 
 Ported: softmax attention (full and sliding-window, with the bf16/fp32
-and the int8 KV-cache layouts), DeepSeek's multi-head latent attention
-(MLA), RWKV6 (time mix and channel mix), the RG-LRU recurrent block and
-the dense MLP block (the MoE MLP is ``models/moe.py``).  Cross-attention
-comes with a later slice (``ROADMAP.md``) and raises
-``NotImplementedError``.
+and the int8 KV-cache layouts), Whisper's cross-attention, DeepSeek's
+multi-head latent attention (MLA), RWKV6 (time mix and channel mix), the
+RG-LRU recurrent block and the dense MLP block (the MoE MLP is
+``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -36,21 +35,12 @@ from .layers import mlp_apply, mlp_init, norm, rope, uinit
 
 __all__ = [
     "attn_init", "attn_cache", "attn_apply",
+    "cross_cache", "cross_apply",
     "mla_init", "mla_cache", "mla_apply",
     "rwkv6_init", "rwkv6_cache", "rwkv6_apply",
     "rglru_init", "rglru_cache", "rglru_apply",
-    "mlp_block_init", "mlp_block_apply", "not_ported",
+    "mlp_block_init", "mlp_block_apply",
 ]
-
-_LATER = {
-    "cross": "cross-attention (Whisper) comes with the other families' slice",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a block or layout a later slice ports."""
-    return NotImplementedError(
-        f"{_LATER.get(what, what)} of the PyTorch port; see ROADMAP.md")
 
 
 def _zeros(shape, dtype, device):
@@ -60,7 +50,9 @@ def _zeros(shape, dtype, device):
 # =========================================================================== #
 # softmax attention (full + local window)                                      #
 # =========================================================================== #
-def attn_init(cfg: ModelConfig, gen, dtype, device):
+def attn_init(cfg: ModelConfig, gen, dtype, device, cross: bool = False):
+    """One attention layer's weights; ``cross`` (Whisper's decoder
+    cross-attention) has no ``qk_norm`` weights, as in the reference."""
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "ln": _zeros((D,), dtype, device),
@@ -69,7 +61,7 @@ def attn_init(cfg: ModelConfig, gen, dtype, device):
         "wv": uinit(gen, (D, Hkv, hd), 1 / math.sqrt(D), dtype, device),
         "wo": uinit(gen, (H, hd, D), 1 / math.sqrt(H * hd), dtype, device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["qn"] = _zeros((hd,), dtype, device)
         p["kn"] = _zeros((hd,), dtype, device)
     return p
@@ -167,6 +159,56 @@ def attn_apply(cfg: ModelConfig, p, x, mode: str, cache, pos, *,
                 buf.copy_(val[:, T - S:])
             else:
                 buf[:, :T] = val
+    return x + y, cache
+
+
+# --------------------------------------------------------------------------- #
+# cross-attention (Whisper's decoder): K/V come from the encoder output,      #
+# cached once at prefill.                                                      #
+# --------------------------------------------------------------------------- #
+def cross_cache(cfg: ModelConfig, B: int, S_enc: int, dtype, device):
+    """The cross K/V of ``S_enc`` encoder frames, of ``n_kv_heads`` heads:
+    what prefill writes.  (The reference allocates ``n_heads`` and its
+    prefill replaces the cache by the projections' ``n_kv_heads``; the two
+    are equal for Whisper, 20 and 20, not for the reduced config, 4 over
+    2.)"""
+    shape = (B, S_enc, cfg.n_kv_heads, cfg.head_dim)
+    return {"ck": _zeros(shape, dtype, device),
+            "cv": _zeros(shape, dtype, device)}
+
+
+def cross_apply(cfg: ModelConfig, p, x, mode: str, cache, enc_out):
+    """``p``: attention weights without ``qk_norm``; ``enc_out`` (B, S_enc,
+    D) in train and prefill, None in decode (which reads the cache).  No
+    RoPE on either side.  Prefill attends over every frame (non-causal
+    prompt attention) and writes the frames' K/V into the cache when it
+    holds ``S_enc`` of them; a cache of 0 frames keeps nothing, as the
+    reference's server, which sets its slot back into an empty cross cache
+    (any other length raises, as the reference's does).  Decode attends
+    over every cached frame (``cur_len = S_enc``)."""
+    h = norm(x, p["ln"], cfg.norm_kind, cfg.norm_eps)
+    B, T, D = h.shape
+    q = (h @ p["wq"].reshape(D, -1)).reshape(B, T, cfg.n_heads, -1)
+    wo = p["wo"].reshape(-1, D)
+    if mode == "decode":
+        ck, cv = cache["ck"], cache["cv"]
+        o = kops.flash_decode(q[:, 0], ck, cv, ck.shape[1])
+        return x + (o.reshape(B, -1) @ wo)[:, None], cache
+    S = enc_out.shape[1]
+    ck = (enc_out @ p["wk"].reshape(D, -1)).reshape(B, S, p["wk"].shape[1],
+                                                    -1)
+    cv = (enc_out @ p["wv"].reshape(D, -1)).reshape(B, S, p["wv"].shape[1],
+                                                    -1)
+    o = kops.flash_attention(q, ck, cv, causal=False)
+    y = o.reshape(B, T, -1) @ wo
+    if mode == "prefill" and cache is not None:
+        S_cache = cache["ck"].shape[1]
+        if S_cache == S:
+            cache["ck"].copy_(ck)
+            cache["cv"].copy_(cv)
+        elif S_cache:
+            raise ValueError(f"a cross cache of {S_cache} frames cannot take "
+                             f"the K/V of {S} encoder frames")
     return x + y, cache
 
 

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "uinit", "rmsnorm", "layernorm", "norm", "rope", "rope_angles",
-    "mlp_init", "mlp_apply", "chunked_attention", "decode_attention",
+    "sinusoid_pos", "mlp_init", "mlp_apply", "chunked_attention", "decode_attention",
 ]
 
 _NEG_INF = -1e30
@@ -67,10 +67,14 @@ def norm(x, w, kind: str = "rmsnorm", eps: float = 1e-6):
 # positions                                                                    #
 # --------------------------------------------------------------------------- #
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
-    """(..., hd/2) angles for the given integer positions."""
+    """(..., hd/2) angles for the given integer positions.  ``theta **
+    exps`` is taken in fp64 and rounded to fp32, the correctly rounded
+    power the reference's XLA gives (torch's fp32 power is a unit in the
+    last place off for some exponents: 3e-5 at position 1,329 of
+    Whisper's sinusoids)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=positions.device) / head_dim
-    freqs = 1.0 / (theta ** exps)
+    freqs = 1.0 / (theta ** exps.double()).float()
     return positions.float()[..., None] * freqs
 
 
@@ -91,24 +95,40 @@ def rope(x, positions: torch.Tensor, theta: float = 1e4, *,
     return out.to(x.dtype)
 
 
+def sinusoid_pos(T: int, d: int, offset: int = 0, device="cpu"):
+    """(T, d) fp32 sinusoidal positions: sines then cosines of the rotary
+    angles of positions ``offset`` .. ``offset + T - 1`` (the encoder's)."""
+    pos = torch.arange(offset, offset + T, dtype=torch.float32,
+                       device=device)
+    ang = rope_angles(pos, d, 1e4)                           # (T, d/2)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # --------------------------------------------------------------------------- #
 # MLP                                                                          #
 # --------------------------------------------------------------------------- #
 def mlp_init(gen, d: int, f: int, act: str, dtype, device):
-    if act not in ("swiglu", "gelu_gated"):
-        raise NotImplementedError(
-            f"mlp_act {act!r} (plain GELU, Whisper) comes with the "
-            "encoder-decoder slice (ROADMAP.md)")
-    return {"wg": uinit(gen, (d, f), None, dtype, device),
-            "wu": uinit(gen, (d, f), None, dtype, device),
-            "wd": uinit(gen, (f, d), None, dtype, device)}
+    """A gated MLP (``swiglu``, ``gelu_gated``: ``wg``, ``wu``, ``wd``) or
+    the plain GELU one of Whisper (any other act: ``wi``, ``bi``, ``wo``,
+    ``bo``, zero biases)."""
+    if act in ("swiglu", "gelu_gated"):
+        return {"wg": uinit(gen, (d, f), None, dtype, device),
+                "wu": uinit(gen, (d, f), None, dtype, device),
+                "wd": uinit(gen, (f, d), None, dtype, device)}
+    return {"wi": uinit(gen, (d, f), None, dtype, device),
+            "wo": uinit(gen, (f, d), None, dtype, device),
+            "bi": torch.zeros((f,), dtype=dtype, device=device),
+            "bo": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def mlp_apply(p, x, act: str):
-    g = x @ p["wg"]
     # jax.nn.gelu defaults to the tanh approximation
-    g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
-    return (g * (x @ p["wu"])) @ p["wd"]
+    if act in ("swiglu", "gelu_gated"):
+        g = x @ p["wg"]
+        g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        return (g * (x @ p["wu"])) @ p["wd"]
+    h = F.gelu(x @ p["wi"] + p["bi"], approximate="tanh")
+    return h @ p["wo"] + p["bo"]
 
 
 # --------------------------------------------------------------------------- #

@@ -67,9 +67,17 @@ class BatchedServer:
 
     # ---- the model calls ---------------------------------------------------
     def _prefill_impl(self, tokens, caches_slot, true_len: int):
-        """Prefill one request into a single-slot cache."""
-        logits, caches = backbone.prefill(
-            self.cfg, self.params, {"tokens": tokens[None, :]}, caches_slot)
+        """Prefill one request into a single-slot cache.  As the
+        reference's, an encoder-decoder encodes 8 zero frames, whose cross
+        K/V its empty cross cache (``S_enc = 0``) does not keep, so decode
+        attends to no frame; a vision config raises ``KeyError``
+        (``vision_embeds``): the server has no frontend input."""
+        batch = {"tokens": tokens[None, :]}
+        if self.cfg.is_encdec:
+            batch["enc_embeds"] = torch.zeros((1, 8, self.cfg.d_model),
+                                              device=self.device)
+        logits, caches = backbone.prefill(self.cfg, self.params, batch,
+                                          caches_slot)
         return logits[0], caches
 
     def _decode_impl(self, tokens, caches, pos):

@@ -79,8 +79,8 @@ def test_configs_match_the_reference():
     assert get_config("recurrentgemma_2b").n_layers == 26
     assert get_config("llama3-8b").n_kv_heads == 8   # served by the port
     assert get_config("deepseek-v3-671b").mla        # served by the port
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("whisper-large-v3")   # not served by the port yet
+    for name in ("whisper-large-v3", "internvl2-76b"):   # served since
+        assert asdict(get_config(name)) == asdict(jax_get_config(name))
 
 
 def test_full_config_parameter_count_matches_jax():
@@ -101,11 +101,20 @@ def test_port_init_has_the_reference_shapes(model):
 
 
 def test_unported_blocks_raise():
+    """Every block kind is ported now: the encoder-decoder and the vision
+    stub initialise with the reference's leaves (an unknown block kind
+    raises ``ValueError``, as the reference's); and the int8 KV layout."""
     gen = torch.Generator().manual_seed(0)
     for arch in ("whisper_large_v3", "internvl2_76b"):
         cfg = jax_get_reduced(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            backbone.init_params(cfg, gen, device="cpu")
+        jparams, _ = jbb.init_params(cfg, jax.random.PRNGKey(0))
+        own = backbone.group_params(cfg, backbone.init_params(
+            cfg, gen, device="cpu"))
+        assert jax.tree.map(lambda t: tuple(t.shape), own) == \
+            jax.tree.map(lambda a: tuple(a.shape), jparams)
+    with pytest.raises(ValueError, match="conv"):
+        backbone.init_params(dataclasses.replace(
+            get_reduced(ARCH), attn_pattern=("conv",)), gen, device="cpu")
     # the int8 KV layout is ported: int8 values with fp32 scales
     c = blocks.attn_cache(get_reduced(ARCH), 1, 8, torch.int8, "cpu")
     assert c["k"].dtype == c["v"].dtype == torch.int8

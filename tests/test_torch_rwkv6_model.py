@@ -216,7 +216,8 @@ def test_int8_cache_request_keeps_recurrent_caches_bf16(arch):
     recurrent = {"rwkv6": ("x_tm", "x_cm", "s"), "rglru": ("conv", "h")}
     checked = 0
     for (spec, _), dtypes in zip(layer_groups(cfg), want):
-        got = backbone._block_cache(cfg, spec, 2, 16, torch.int8, "cpu")
+        got = backbone._block_cache(cfg, spec, 2, 16, 0, torch.int8,
+                                    "cpu")["mix"]
         if spec.kind not in recurrent:
             assert dtypes["k"] == "int8"
             assert sorted(got) == sorted(dtypes) == ["k", "ks", "v", "vs"]

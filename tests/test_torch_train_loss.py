@@ -117,15 +117,16 @@ def test_xent_with_a_mask_equals_the_reference():
 
 
 def test_lm_loss_refuses_the_families_still_to_come():
-    import dataclasses
-    _, _, pcfg, params = model("smollm-360m")
-    toks = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    for change in (dict(frontend="vision"), dict(encoder_layers=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            backbone.lm_loss(dataclasses.replace(pcfg, **change), params,
-                             toks)
-    # MTP is served (test_torch_moe_family.py)
-    backbone._check_served(dataclasses.replace(pcfg, mtp=True))
+    """Every family is ported now (the encoder-decoder and the vision stub:
+    test_torch_encdec.py, test_torch_vlm.py); their loss refuses a batch
+    without its frontend's input, as the reference's (a KeyError naming
+    it)."""
+    toks = {"tokens": torch.zeros((1, 12), dtype=torch.long)}
+    for arch, key in (("internvl2-76b", "vision_embeds"),
+                      ("whisper-large-v3", "enc_embeds")):
+        _, _, pcfg, params = model(arch)
+        with pytest.raises(KeyError, match=key):
+            backbone.lm_loss(pcfg, params, toks)
 
 
 # --------------------------------------------------------------------------- #

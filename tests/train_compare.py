@@ -59,6 +59,20 @@ def tokens(seed, shape, vocab):
         np.int32)
 
 
+def frontend_inputs(cfg, B, T, seed):
+    """The stub frontends' inputs a config's batch needs, as numpy:
+    ``enc_embeds`` (B, 8, D) for an encoder-decoder, ``vision_embeds`` (B,
+    min(4, T // 2), D) for a vision config, 0.02 x a standard normal."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.is_encdec:
+        out["enc_embeds"] = 0.02 * rng.standard_normal((B, 8, cfg.d_model))
+    if cfg.frontend == "vision":
+        out["vision_embeds"] = 0.02 * rng.standard_normal(
+            (B, min(4, T // 2), cfg.d_model))
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
 def jax_tree(tree):
     return jax.tree.map(jnp.asarray, tree)
 
@@ -116,7 +130,8 @@ METRICS = ("loss", "xent", "aux", "mtp", "grad_norm", "lr")   # mtp: MTP configs
 
 def run_both(arch, microbatches, factored, compress, steps=STEPS):
     """``steps`` train steps of the family in both packages from the same
-    weights on the same tokens: (reference metrics, reference state, port
+    weights on the same tokens (and frontend inputs,
+    :func:`frontend_inputs`): (reference metrics, reference state, port
     metrics, port state); the reference's step under ``jax.jit``."""
     from repro.train import optimizer as jopt
     from repro.train import trainer as jtr
@@ -141,9 +156,13 @@ def run_both(arch, microbatches, factored, compress, steps=STEPS):
     jm, tm = [], []
     for i in range(steps):
         toks = tokens(10 + i, (STEP_B, STEP_T), cfg.vocab)
-        js, m = jstep(js, {"tokens": jnp.asarray(toks)})
+        extra = frontend_inputs(cfg, STEP_B, STEP_T, seed=20 + i)
+        js, m = jstep(js, {"tokens": jnp.asarray(toks),
+                           **{k: jnp.asarray(v) for k, v in extra.items()}})
         jm.append({k: float(m[k]) for k in METRICS if k in m})
-        ts, m = tstep(ts, {"tokens": torch.from_numpy(toks).long()})
+        ts, m = tstep(ts, {"tokens": torch.from_numpy(toks).long(),
+                           **{k: torch.from_numpy(v)
+                              for k, v in extra.items()}})
         tm.append({k: float(m[k]) for k in METRICS if k in m})
     return jm, js, tm, ts
 
