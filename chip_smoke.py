@@ -235,8 +235,8 @@ fails ends the run with exit code 1:
                prefill launch of the RG-LRU scan and of the WKV recurrence
                on the chunked route and every decode launch on the
                sequential one; then the serve's last wave
-               (its last 4 requests,
-               the served prompts) is replayed on a fresh server under
+               (its last 4 requests, the served prompts, at most 16 new
+               tokens each) is replayed on a fresh server under
                ``torch.profiler`` for the card's busy share and kernel time
                by name;
 8. kernels line — per kernel: launches on its path (phase 4 or 7; the
@@ -295,6 +295,29 @@ fails ends the run with exit code 1:
                moment and a compressed run's leaves within a budget (up to
                max(2, 0.5 %) of a leaf's elements outside, all within
                0.05), and every kernel launch counted on its instance.
+
+10. dry run  — (a) ``python -m repro_torch.launch.dryrun`` (its ``main``)
+               over every shape and both meshes, one job an arch in the
+               host checks' pool (beside no timed card run): all 80
+               (arch x shape x mesh) records ``ok``, or ``skipped``
+               exactly where ``shape_applicable`` says; each cell's
+               bottleneck, three roofline terms and GiB a device, and each
+               job's seconds; (b) the single-mesh records through
+               ``launch.roofline.jobgen_records`` into the ``tpu`` kind
+               (200 jobs, 128 nodes, load 0.7, seed 0) under GreedyP
+               */OPT=MIN, ``run_batched`` on the card against the host
+               numpy ``Engine``, every outcome field equal; the job types'
+               ``cpu_need`` and ``mem_req``; (c) on a one-device plan (a
+               (1, 1) mesh), the dry run of the very steps phases 7 and 9
+               timed — the decode steps of RecurrentGemma-2B, RWKV6-7B and
+               Llama-3-8B (half depth), Qwen1.5-MoE-A2.7B, Whisper-large-v3
+               and InternVL2-76B (8 layers), 4 slots, bf16 at 989 TFLOP/s;
+               SmolLM-360M's train step, 4 x 1,024, fp32 at 67 TFLOP/s,
+               AdamW — each measured step over its dry-run bound (it fails
+               below 0.95), the measured peak device memory over the dry
+               run's bytes a device (it fails outside 0.5-2), the dry run's
+               memory term beside the hand-worked weight read (and phase
+               9's hand-worked bound).
 
 Then the nvidia-smi line again, the kernels line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -2346,6 +2369,10 @@ MODEL_TOL = 2e-3                               # the reference's model tests
 FLIP_MARGIN = 1e-6
 CHECK_STEPS, CHECK_CACHE = 8, 4096
 SERVE_SLOTS, SERVE_CACHE, SERVE_REQUESTS = 4, 4096, 8
+# the traced replay of a serve's last wave: its prompts, at most this many
+# new tokens a request (the script's time limit; the serve before it runs
+# every token)
+REPLAY_NEW = 16
 
 
 def _dtype_name(torch, dt):
@@ -3036,7 +3063,7 @@ def phase_serve(torch, np, arch):
                                            generator=gen, device="cuda")}
                   for _ in reqs]
 
-    def server(requests):
+    def server(requests, max_new=None):
         srv = TimedServer(cfg, params, ServeConfig(
             slots=SERVE_SLOTS, cache_len=cache_len, seed=seed),
             device="cuda", S_enc=S_enc,
@@ -3044,7 +3071,7 @@ def phase_serve(torch, np, arch):
                                                 for r in requests])
         for r in requests:
             srv.submit(Request(rid=r.rid, prompt=r.prompt,
-                               max_new=r.max_new))
+                               max_new=min(r.max_new, max_new or r.max_new)))
         return srv
 
     srv = server(reqs)
@@ -3079,10 +3106,10 @@ def phase_serve(torch, np, arch):
     finished = all(r.done and len(r.out) == max_new for r in reqs)
 
     # The serve's last wave (its last SERVE_SLOTS requests: the served
-    # prompts and lengths) replayed on a fresh server under the profiler,
-    # for the card's busy share and kernel time by name; every other number
-    # here comes from the untraced run above.
-    tsrv = server(reqs[-SERVE_SLOTS:])
+    # prompts, at most REPLAY_NEW new tokens each) replayed on a fresh
+    # server under the profiler, for the card's busy share and kernel time
+    # by name; every other number here comes from the untraced run above.
+    tsrv = server(reqs[-SERVE_SLOTS:], REPLAY_NEW)
     torch.cuda.synchronize()
     prof, trace_error = start_device_trace(torch)
     t1 = time.perf_counter()
@@ -3141,9 +3168,15 @@ def phase_serve(torch, np, arch):
                           f"kernel of {arch} was not launched, a "
                           "kernel ran a call on the wrong instance, or the "
                           "serving launcher failed")
+    step = {"cfg": cfg, "cache_len": cache_len,
+            "ms_per_decode_step": srv.decode_s / srv.decode_steps * 1e3,
+            "peak_bytes": peak,
+            "weight_read_bound_ms": (moe_read_fields(cfg, params).get(
+                "step_read_bound_ms")
+                or weight_bytes / HBM_BYTES_PER_S * 1e3)}
     del srv, params
     torch.cuda.empty_cache()
-    return launches, lens, routes
+    return launches, lens, routes, step
 
 
 def kernel_calls(cfg, kernel):
@@ -3470,11 +3503,12 @@ def serve_kernel_entries(torch, np, served, functions, hgmma,
     under their names (``"llama3_8b"``, ``"qwen2_moe_a2_7b"``,
     ``"deepseek_v3_671b"``: its MLA prefill only, its decode has no
     kernel), and the RG-LRU scan per route (:func:`recurrence_entries`).
-    ``served``: each served arch's (launches, prompt lengths, routes)."""
+    ``served``: each served arch's (launches, prompt lengths, routes, its
+    step's measurements)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import rglru_scan as rglru
 
-    launches, prompt_lens, routes = served[RG]
+    launches, prompt_lens, routes, _ = served[RG]
     W = get_config(RG).lru_width
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
@@ -3493,7 +3527,7 @@ def serve_kernel_entries(torch, np, served, functions, hgmma,
                        (WHISPER, 17), (INTERNVL, 18)):
         agen = torch.Generator(device="cuda")
         agen.manual_seed(seed)
-        a_launches, a_lens, a_routes = served[arch]
+        a_launches, a_lens, a_routes, _ = served[arch]
         for entry, fields in zip(entries, attention_fields(
                 torch, np, arch, a_launches, a_lens, functions, hgmma,
                 agen)):
@@ -4112,7 +4146,9 @@ def phase_train(torch, np):
                                 "shape": [TRAIN_BATCH, TRAIN_SEQ,
                                           cfg.n_heads, cfg.n_kv_heads,
                                           cfg.head_dim]},
-            "checks": dict(check_launches)}
+            "checks": dict(check_launches),
+            "step": {"ms": ms, "peak_bytes": clean["peak_bytes"],
+                     "bound_s": bound_s}}
 
 
 def train_attention_fields(torch, shape):
@@ -4176,6 +4212,198 @@ def add_train_fields(torch, entries, trained):
     return ok
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: the dry run                                                        #
+# --------------------------------------------------------------------------- #
+DRYRUN_MESHES = ("single", "multi")
+# (b): the dry run's job mix on the card and on the host
+TPU_JOBS, TPU_NODES, TPU_LOAD, TPU_SEED = 200, 128, 0.7, 0
+TPU_POLICY = "GreedyP */OPT=MIN"
+# (c): the decode steps of phase 7 it bounds (DeepSeek-V3's cut serve
+# aside); a measured step may not beat 0.95 x its bound, and the measured
+# peak must lie within 0.5-2 x the dry run's bytes a device
+BOUND_ARCHS = (RG, RWKV, LLAMA, QWEN_MOE, WHISPER, INTERNVL)
+STEP_FLOOR = 0.95
+MEMORY_BAND = (0.5, 2.0)
+
+
+def _dryrun_arch(arch):
+    """Phase 10 (a)'s job for one arch, in a host pool worker: ``python -m
+    repro_torch.launch.dryrun --arch <arch> --shape <s> --mesh both`` for
+    every shape (its ``main``, its printing kept off this script's
+    output); (records, exit codes, seconds)."""
+    import contextlib
+    import io
+    import tempfile
+
+    _src_on_path()
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rcs = [dryrun.main(["--arch", arch, "--shape", s, "--mesh",
+                                "both", "--out", out]) for s in SHAPES]
+        recs = []
+        for path in sorted(Path(out).glob("*.json")):
+            with open(path) as f:
+                recs.append(json.load(f))
+    return recs, rcs, time.perf_counter() - t0
+
+
+def dryrun_check(results, pool_wall):
+    """Phase 10 (a)'s line: every (arch, shape, mesh) cell ``ok``, or
+    ``skipped`` exactly where ``shape_applicable`` says; each cell's
+    bottleneck, terms and GiB a device.  Returns the records."""
+    from repro_torch.configs import ARCHS, SHAPES, get_config, \
+        shape_applicable
+    from repro_torch.launch.roofline import bytes_per_chip
+
+    records = [r for recs, _, _ in results for r in recs]
+    got = {(r["arch"], r["shape"], r["mesh"]): r for r in records}
+    want = {(a, sh, m): shape_applicable(get_config(a), SHAPES[sh])[0]
+            for a in ARCHS for sh in SHAPES for m in DRYRUN_MESHES}
+    ok = (set(got) == set(want) and len(records) == len(want)
+          and all(rc == 0 for _, rcs, _ in results for rc in rcs)
+          and all(got[k]["status"] == ("ok" if v else "skipped")
+                  for k, v in want.items()))
+    cells = []
+    for (a, sh, m), r in sorted(got.items()):
+        cell = {"cell": f"{a}:{sh}:{m}", "status": r["status"]}
+        if r["status"] == "ok":
+            t = r["roofline"]
+            cell.update(bottleneck=t["bottleneck"], compute_s=t["compute_s"],
+                        memory_s=t["memory_s"],
+                        collective_s=t["collective_s"],
+                        gib_per_device=bytes_per_chip(r) / 2 ** 30,
+                        trace_s=r["trace_s"])
+        cells.append(cell)
+    emit({"phase": "dryrun", "part": "a", "ok": ok, "records": len(records),
+          "expected": len(want), "pool_wall_s": pool_wall,
+          "job_s": {a: secs for a, (_, _, secs) in zip(ARCHS, results)},
+          "cells": cells})
+    if not ok:
+        raise PhaseFailed("a dry-run cell failed, is missing, or was skipped "
+                          "where its shape applies")
+    return records
+
+
+def phase_dryrun_tpu(torch, np, records):
+    """Phase 10 (b): the single-mesh records through
+    ``launch.roofline.jobgen_records`` into the ``tpu`` kind (200 jobs,
+    128 nodes, load 0.7, seed 0), simulated under GreedyP */OPT=MIN by
+    ``run_batched`` on the card (the solve kernel) and by the host numpy
+    ``Engine``, every outcome field equal."""
+    import tempfile
+
+    from repro_torch.launch.roofline import jobgen_records
+    from repro_torch.sched.sweep import Cell
+    from repro_torch.workloads.jobgen import tpu_job_types
+    from repro_torch.workloads.registry import WorkloadSpec
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for r in records:
+            if r["mesh"] == "single":
+                name = f"{r['arch']}__{r['shape']}__single.json"
+                with open(os.path.join(tmp, name), "w") as f:
+                    json.dump(r, f)
+        flat = jobgen_records("single", tmp)
+        path = os.path.join(tmp, "records.json")
+        with open(path, "w") as f:
+            json.dump(flat, f)
+        w = WorkloadSpec("tpu", n_jobs=TPU_JOBS, n_nodes=TPU_NODES,
+                         seed=TPU_SEED, load=TPU_LOAD,
+                         params={"records": path})
+        cells = [Cell(w, TPU_POLICY)]
+        run = drive_cells(torch, np, cells)
+        checked = check_cells(np, run, cells, [_host_cell(cells[0])], 0.0)
+    types = tpu_job_types(flat)
+    ok = not checked["mismatches"] and run["launches"]["maxmin_solve"] > 0
+    rec = run["res"].records[0]
+    emit({"phase": "dryrun", "part": "b", "ok": ok, "records": len(flat),
+          "job_types": [{"name": t.name, "cpu_need": t.cpu_need,
+                         "mem_req": t.mem_req, "n_tasks": t.n_tasks}
+                        for t in types],
+          "n_jobs": TPU_JOBS, "n_nodes": TPU_NODES, "load": TPU_LOAD,
+          "seed": TPU_SEED, "policy": TPU_POLICY,
+          "launches": run["launches"], "mismatches": checked["mismatches"],
+          "max_stretch": rec["max_stretch"],
+          "host_max_stretch": checked["host_results"][0].max_stretch,
+          "host_wall_s": checked["host_walls"][0], **run["line"]})
+    if not ok:
+        raise PhaseFailed("the dry run's tpu trace disagrees between the "
+                          "card and the host, or the solve kernel did not "
+                          "launch")
+
+
+def phase_dryrun_bounds(torch, served, trained):
+    """Phase 10 (c): the dry run of the very steps phases 7 and 9 timed, on
+    a one-device plan (a (1, 1) mesh; the inputs' peak: bf16 989 TFLOP/s
+    for the serves, FP32 67 TFLOP/s for the fp32 training), against the
+    card: measured / bound (a step faster than 0.95 x its bound means a
+    wrong count), the measured peak against the dry run's bytes a device
+    (within 0.5-2x), the dry run's memory term beside the hand-worked
+    weight read of PERF.md section 5 (and phase 9's hand-worked bound)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import Mesh
+
+    one = Mesh(("data", "model"), (1, 1))
+    t0 = time.perf_counter()
+    steps = []
+
+    def row(name, rec, measured_s, peak, hand):
+        t = rec["roofline"]
+        nbytes = roofline.bytes_per_chip(rec)
+        out = {"step": name, "measured_s": measured_s,
+               "bound_s": t["step_s"], "bottleneck": t["bottleneck"],
+               "compute_s": t["compute_s"], "memory_s": t["memory_s"],
+               "measured_over_bound": measured_s / t["step_s"],
+               "dryrun_bytes": nbytes, "peak_bytes": peak,
+               "peak_over_dryrun": peak / nbytes, **hand,
+               "kernels": {k: v["calls"] for k, v in rec["kernels"].items()}}
+        out["ok"] = (measured_s >= STEP_FLOOR * t["step_s"]
+                     and MEMORY_BAND[0] <= out["peak_over_dryrun"]
+                     <= MEMORY_BAND[1])
+        steps.append(out)
+
+    for arch in BOUND_ARCHS:
+        m = served[arch][3]
+        shape = ShapeSpec("serve_decode", m["cache_len"], SERVE_SLOTS,
+                          "decode")
+        rec = dryrun.trace_cell(m["cfg"], shape, one,
+                                knobs={"dtype": torch.bfloat16},
+                                hw=roofline.HW(chips=1), extrap=False)
+        row(f"{arch} decode ({m['cfg'].n_layers} layers, {SERVE_SLOTS} "
+            f"slots, cache {m['cache_len']})", rec,
+            m["ms_per_decode_step"] / 1e3, m["peak_bytes"],
+            {"hand_weight_read_ms": m["weight_read_bound_ms"],
+             "dryrun_memory_ms": rec["roofline"]["memory_s"] * 1e3})
+    t = trained["step"]
+    shape = ShapeSpec("train_step", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec = dryrun.trace_cell(get_config(TRAIN_ARCH), shape, one,
+                            knobs={"dtype": torch.float32, "factored": False},
+                            hw=roofline.HW(chips=1,
+                                           peak_flops=FP32_OPS_PER_S),
+                            extrap=False)
+    row(f"{TRAIN_ARCH} train ({TRAIN_BATCH} x {TRAIN_SEQ}, fp32, AdamW)",
+        rec, t["ms"] / 1e3, t["peak_bytes"],
+        {"hand_bound_s": t["bound_s"],
+         "dryrun_compute_s": rec["roofline"]["compute_s"],
+         "dryrun_memory_ms": rec["roofline"]["memory_s"] * 1e3})
+    ok = all(r["ok"] for r in steps)
+    emit({"phase": "dryrun", "part": "c", "ok": ok,
+          "hw": "one device: bf16 989 TFLOP/s (serves), FP32 67 TFLOP/s "
+                "(training), HBM 3.35 TB/s", "step_floor": STEP_FLOOR,
+          "memory_band": list(MEMORY_BAND), "steps": steps,
+          "trace_s": time.perf_counter() - t0})
+    if not ok:
+        raise PhaseFailed("a measured step beat its dry-run bound, or a "
+                          "measured peak lies outside 0.5-2x the dry run's "
+                          "bytes a device")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4210,8 +4438,13 @@ def main() -> int:
         session_launches = phase_slice_session(torch, np, checks)
         phase = "slice scenarios"
         scenario_launches = phase_slice_scenarios(torch, np, checks)
+        # phase 10 (a): the dry run of every cell, in the same host pool
+        from repro_torch.configs import ARCHS
+        defer(checks, "dryrun", _dryrun_arch, ARCHS, dryrun_check,
+              first=True)
         phase = "slice host checks"
-        seed0 = checks.run()["slice"]
+        host = checks.run()
+        seed0, dry_records = host["slice"], host["dryrun"]
         phase = "slice serve"
         serve_launches = phase_slice_serve(torch, np, seed0)
         phase = "serve kernels"
@@ -4225,6 +4458,10 @@ def main() -> int:
             served[arch] = phase_serve(torch, np, arch)
         phase = "train"
         trained = phase_train(torch, np)
+        phase = "dryrun tpu"
+        phase_dryrun_tpu(torch, np, dry_records)
+        phase = "dryrun bounds"
+        phase_dryrun_bounds(torch, served, trained)
         phase = "kernels line"
         alloc_entries, alloc_ok = phase_kernel_line(
             torch, np, launches, stats, libraries["alloc"]["ptxas"],
@@ -4233,7 +4470,7 @@ def main() -> int:
         serve_entries, serve_ok = serve_kernel_entries(
             torch, np, served, libraries["attention"]["ptxas"], hgmma,
             libraries["rglru"]["ptxas"])
-        wkv, wkv_ok = wkv6_entries(torch, np, *served[RWKV],
+        wkv, wkv_ok = wkv6_entries(torch, np, *served[RWKV][:3],
                                    libraries["wkv6"]["ptxas"])
         line = {"kernels": alloc_entries + serve_entries + wkv}
         train_ok = add_train_fields(torch, line["kernels"], trained)

@@ -54,7 +54,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import BackendFault, resolve_device
+from .. import device as _device
+from ..device import BackendFault
 from ..kernels import ops
 from .alloc_kernels import CSRIncidence
 
@@ -70,6 +71,16 @@ __all__ = [
     "TorchBatchedAllocator",
     "LockstepDispatcher",
 ]
+
+
+def resolve_device(device) -> torch.device:
+    """The allocator's device: ``"cuda"`` (raising without a card) or
+    ``"cpu"``; ``"meta"``, which the model code's dry run takes, holds no
+    data to allocate with and is refused."""
+    dev = _device.resolve_device(device)
+    if dev.type == "meta":
+        raise ValueError("the allocator runs on 'cuda' or 'cpu', not 'meta'")
+    return dev
 
 
 def csr_from_arrays(n_nodes: int, width: int, indptr, indices,

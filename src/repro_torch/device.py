@@ -24,7 +24,9 @@ class BackendFault(RuntimeError):
 
 def resolve_device(device) -> torch.device:
     """``torch.device`` for an entry point's ``device`` argument; raises
-    when CUDA is asked for and missing (no silent CPU fallback)."""
+    when CUDA is asked for and missing (no silent CPU fallback).
+    ``"meta"`` (shapes and dtypes, no data: the dry run's tensors) is
+    accepted too."""
     import torch
 
     dev = torch.device(device)
@@ -33,6 +35,6 @@ def resolve_device(device) -> torch.device:
             raise BackendFault(
                 "CUDA is not available; pass device='cpu' to run the plain "
                 "PyTorch versions of the kernels")
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

@@ -24,6 +24,12 @@ itself, as the reference's ``"ref"`` backend.  The JAX package has no
 backward Pallas kernel, so none is owed here; hand-written backward
 kernels are later performance work (``ROADMAP.md``).  ``flash_decode``
 and the allocation kernels are forward-only, as in the reference.
+
+On a ``meta`` tensor (the dry run: shapes, no data) a model kernel returns
+empty outputs of its shapes and charges its own operations and bytes to
+the active cost counter (:mod:`repro_torch.kernels.meta_cost`); its
+backward is charged likewise.  No launch is counted.  The allocation
+kernels refuse ``meta``.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from .alloc_matvec import alloc_matvec_cuda, alloc_matvec_plain
 from .flash_attention import (attention_instance, decode_instance,
                               flash_attention_cuda, flash_attention_plain,
                               flash_decode_cuda, flash_decode_plain)
+from . import meta_cost
 from .maxmin_solve import maxmin_solve_cuda, maxmin_solve_plain, solve_route
 from .node_usage import node_usage_cuda, node_usage_plain
 from .rglru_scan import linear_recurrence_plain, rglru_route, rglru_scan_cuda
@@ -69,6 +76,38 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+def _on_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
+class _MetaKernel(torch.autograd.Function):
+    """A model kernel on ``meta``: empty outputs of ``shapes`` (and
+    ``dtypes``), its (flops, bytes) charged to the active counter, and
+    twice that for the backward, whose gradients are empty too."""
+
+    @staticmethod
+    def forward(ctx, name, cost, shapes, dtypes, *inputs):
+        ctx.name, ctx.cost = name, cost
+        ctx.specs = [(t.shape, t.dtype) for t in inputs]
+        meta_cost.charge(name, *cost)
+        return tuple(torch.empty(s, dtype=d, device="meta")
+                     for s, d in zip(shapes, dtypes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        meta_cost.charge(ctx.name + " backward", 2 * ctx.cost[0],
+                         2 * ctx.cost[1])
+        return (None, None, None, None) + tuple(
+            torch.empty(s, dtype=d, device="meta") if n else None
+            for (s, d), n in zip(ctx.specs, ctx.needs_input_grad[4:]))
+
+
+def _meta_call(name, cost, outputs, *inputs):
+    shapes = [tuple(s) for s, _ in outputs]
+    dtypes = [d for _, d in outputs]
+    return _MetaKernel.apply(name, cost, shapes, dtypes, *inputs)
 
 
 def alloc_matvec(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +181,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """GQA attention of a prompt (see ``kernels/flash_attention.py``);
     differentiable, its backward that of the plain version."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    if _on_meta(q):
+        out_shape = q.shape[:-1] + v.shape[-1:]
+        return _meta_call("flash_attention", meta_cost.attention_cost(
+            q, k, v, causal, window, q_offset), [(out_shape, q.dtype)],
+            q, k, v)[0]
     if _on_cuda(q):
         def kernel(q_, k_, v_):
             out = flash_attention_cuda(q_, k_, v_, **kw)
@@ -159,6 +203,11 @@ def flash_decode(q, k_cache, v_cache, cur_len, *,
                  scale: Optional[float] = None):
     """One new token per request against a KV cache (see
     ``kernels/flash_attention.py``)."""
+    if _on_meta(q):
+        out_shape = q.shape[:-1] + v_cache.shape[-1:]
+        return _meta_call("flash_decode", meta_cost.decode_cost(
+            q, k_cache, v_cache, cur_len), [(out_shape, q.dtype)],
+            q, k_cache, v_cache)[0]
     if _on_cuda(q):
         out = flash_decode_cuda(q, k_cache, v_cache, cur_len, scale=scale)
         launches["flash_decode"] += 1
@@ -173,6 +222,11 @@ def linear_recurrence(a, b, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     kernel for every T, decode's single step included: the route
     (``rglru_route``) is chunked for a prefill, sequential otherwise.
     Differentiable, its backward that of the plain version."""
+    if _on_meta(a):
+        B, T, W = a.shape
+        return _meta_call("rglru_scan", meta_cost.rglru_cost(a, b, h0),
+                          [((B, T, W), torch.float32),
+                           ((B, W), torch.float32)], a, b, h0)
     if _on_cuda(a):
         def kernel(a_, b_, h0_):
             out = rglru_scan_cuda(a_, b_, h0_)
@@ -194,6 +248,12 @@ def wkv6(r, k, v, w, u, s0, *, state_out: Optional[torch.Tensor] = None
     every T, decode's single step included: the route (``wkv6_route``) is
     chunked for a prefill, sequential otherwise.  Differentiable (with
     ``state_out`` None), its backward that of the plain version."""
+    if _on_meta(r):
+        B, T, H, _ = r.shape
+        y, sT = _meta_call("wkv6", meta_cost.wkv6_cost(r, k, v, w, u, s0),
+                           [((B, T, H, v.shape[-1]), torch.float32),
+                            (s0.shape, torch.float32)], r, k, v, w, u, s0)
+        return y, (sT if state_out is None else state_out)
     if _on_cuda(r):
         def kernel(r_, k_, v_, w_, u_, s0_):
             out = wkv6_cuda(r_, k_, v_, w_, u_, s0_, state_out=state_out)

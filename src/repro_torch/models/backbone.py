@@ -44,9 +44,10 @@ from .config import (ATTN, DENSE, LOCAL_ATTN, MLA, MOE, RGLRU, RWKV6,
                      BlockSpec, ModelConfig, layer_groups, layer_plan)
 from .layers import norm, sinusoid_pos, uinit
 
-__all__ = ["init_params", "group_params", "layer_params", "init_cache",
-           "slot_view", "encode", "forward", "embed_tokens", "logits_fn",
-           "lm_loss", "prefill", "decode_step"]
+__all__ = ["init_params", "param_axes", "param_shapes", "group_params",
+           "layer_params", "init_cache", "cache_shapes", "slot_view",
+           "encode", "forward", "embed_tokens", "logits_fn", "lm_loss",
+           "prefill", "decode_step"]
 
 Params = Dict[str, Any]
 
@@ -105,6 +106,61 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "block": _layer_init(cfg, _MTP_SPEC, generator, dtype, device),
         }
     return params
+
+
+def _layer_axes(cfg: ModelConfig, spec: BlockSpec) -> Params:
+    """The logical axes of one :func:`_layer_init` dict."""
+    if spec.kind in (ATTN, LOCAL_ATTN):
+        mix = blocks.attn_axes(cfg)
+    elif spec.kind == MLA:
+        mix = blocks.mla_axes(cfg)
+    elif spec.kind == RWKV6:
+        return {"mix": blocks.rwkv6_axes(cfg)}
+    elif spec.kind == RGLRU:
+        mix = blocks.rglru_axes(cfg)
+    else:
+        raise ValueError(spec.kind)
+    layer = {"mix": mix}
+    if spec.cross_attn:
+        layer["cross"] = blocks.attn_axes(cfg, cross=True)
+    layer["mlp"] = (moe.moe_axes(cfg) if spec.mlp == MOE
+                    else blocks.mlp_block_axes(cfg))
+    return layer
+
+
+def _stacked_axes(tree):
+    return {k: _stacked_axes(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in tree.items()}
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of every parameter, a tuple of names a leaf, in
+    the training layout (:func:`group_params`: a ``"layers"`` axis in front
+    of every group leaf), as the reference's ``param_axes``.  Nothing is
+    allocated."""
+    axes: Params = {
+        "embed": ("vocab", "d_model"),
+        "groups": [_stacked_axes(_layer_axes(cfg, spec))
+                   for spec, _ in layer_groups(cfg)],
+        "final_norm": ("d_model",)}
+    if not cfg.tie_embeddings:
+        axes["head"] = ("d_model", "vocab")
+    if cfg.is_encdec:
+        axes["enc"] = {"groups": [_stacked_axes(_layer_axes(cfg, _ENC_SPEC))],
+                       "final_norm": ("d_model",)}
+    if cfg.mtp:
+        axes["mtp"] = {"proj": (None, "d_model"), "ln_h": ("d_model",),
+                       "ln_e": ("d_model",),
+                       "block": _layer_axes(cfg, _MTP_SPEC)}
+    return axes
+
+
+def param_shapes(cfg: ModelConfig, dtype=torch.float32) -> Params:
+    """The parameters in the training layout as ``meta`` tensors: shapes
+    and dtypes at any size, no data (the reference's ``eval_shape`` of its
+    ``init_params``)."""
+    return group_params(cfg, init_params(cfg, torch.Generator(), dtype=dtype,
+                                         device="meta"))
 
 
 def group_params(cfg: ModelConfig, params: Params) -> Params:
@@ -206,6 +262,22 @@ def init_cache(cfg: ModelConfig, B: int, S: int, S_enc: int = 0,
     device = resolve_device(device)
     return [_block_cache(cfg, spec, B, S, S_enc, dtype, device)
             for spec in layer_plan(cfg)]
+
+
+def cache_shapes(cfg: ModelConfig, B: int, S: int, S_enc: int = 0,
+                 dtype=torch.bfloat16) -> Params:
+    """The caches of :func:`init_cache` as ``meta`` tensors in the
+    reference's layout: ``{"groups": [...]}``, one dict a ``layer_groups``
+    entry, every leaf stacked ``(count, ...)``.  ``layer_params(cfg,
+    caches)`` gives the per-layer views the forward takes."""
+    meta = torch.device("meta")
+    groups = []
+    for spec, count in layer_groups(cfg):
+        one = _block_cache(cfg, spec, B, S, S_enc, dtype, meta)
+        groups.append({part: {k: v.new_empty((count,) + v.shape)
+                              for k, v in c.items()}
+                       for part, c in one.items()})
+    return {"groups": groups}
 
 
 def slot_view(caches, slot: int):

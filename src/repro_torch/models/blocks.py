@@ -16,6 +16,10 @@ filled.
 
 ``<kind>_cache(cfg, B, S, dtype, device)`` — zeroed per-layer cache dict.
 
+``<kind>_axes(cfg)`` — the mirror of ``<kind>_init``'s dict: a tuple of
+logical axis names a leaf (``launch.shardings`` maps them onto a mesh),
+the reference's second return value of its init.
+
 Ported: softmax attention (full and sliding-window, with the bf16/fp32
 and the int8 KV-cache layouts), Whisper's cross-attention, DeepSeek's
 multi-head latent attention (MLA), RWKV6 (time mix and channel mix), the
@@ -31,15 +35,15 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from .config import ModelConfig
-from .layers import mlp_apply, mlp_init, norm, rope, uinit
+from .layers import mlp_apply, mlp_axes, mlp_init, norm, rope, uinit
 
 __all__ = [
-    "attn_init", "attn_cache", "attn_apply",
+    "attn_init", "attn_axes", "attn_cache", "attn_apply",
     "cross_cache", "cross_apply",
-    "mla_init", "mla_cache", "mla_apply",
-    "rwkv6_init", "rwkv6_cache", "rwkv6_apply",
-    "rglru_init", "rglru_cache", "rglru_apply",
-    "mlp_block_init", "mlp_block_apply",
+    "mla_init", "mla_axes", "mla_cache", "mla_apply",
+    "rwkv6_init", "rwkv6_axes", "rwkv6_cache", "rwkv6_apply",
+    "rglru_init", "rglru_axes", "rglru_cache", "rglru_apply",
+    "mlp_block_init", "mlp_block_axes", "mlp_block_apply",
 ]
 
 
@@ -67,6 +71,17 @@ def attn_init(cfg: ModelConfig, gen, dtype, device, cross: bool = False):
     return p
 
 
+def attn_axes(cfg: ModelConfig, cross: bool = False):
+    a = {"ln": ("d_model",),
+         "wq": ("d_model", "heads", "head_dim"),
+         "wk": ("d_model", "kv_heads", "head_dim"),
+         "wv": ("d_model", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "d_model")}
+    if cfg.qk_norm and not cross:
+        a["qn"] = a["kn"] = ("head_dim",)
+    return a
+
+
 def attn_cache(cfg: ModelConfig, B: int, S: int, dtype, device):
     """KV cache.  dtype int8 selects the quantized layout: int8 ``k`` and
     ``v`` with fp32 scales ``ks`` and ``vs``, one a token and KV head
@@ -79,6 +94,17 @@ def attn_cache(cfg: ModelConfig, B: int, S: int, dtype, device):
         cache["ks"] = _zeros(shape[:3], torch.float32, device)
         cache["vs"] = _zeros(shape[:3], torch.float32, device)
     return cache
+
+
+def _decode_pos(pos, B: int, device):
+    """A decode step's position as an int64 tensor: a Python int stays 0-d
+    (one slot written for every row); a tensor, 0-d or (B,), becomes (B,)
+    per-request positions, so that no host reads it (the dry run's
+    position lives on ``meta``)."""
+    pos_t = torch.as_tensor(pos, dtype=torch.int64, device=device)
+    if isinstance(pos, torch.Tensor) and pos_t.dim() == 0:
+        pos_t = pos_t.expand(B)
+    return pos_t
 
 
 def _kv_quant(x):
@@ -113,7 +139,7 @@ def attn_apply(cfg: ModelConfig, p, x, mode: str, cache, pos, *,
     B, T, D = h.shape
     wo = p["wo"].reshape(-1, D)
     if mode == "decode":
-        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+        pos_t = _decode_pos(pos, B, x.device)
         batched = pos_t.dim() == 1         # per-request positions (serving)
         positions = pos_t[:, None] if batched else pos_t.reshape(1)
         q, k, v = _qkv(cfg, p, h, positions)
@@ -235,6 +261,15 @@ def mla_init(cfg: ModelConfig, gen, dtype, device):
     }
 
 
+def mla_axes(cfg: ModelConfig):
+    return {"ln": ("d_model",), "wdq": ("d_model", "q_lora"),
+            "qn": ("q_lora",), "wuq": ("q_lora", "heads", "head_dim"),
+            "wdkv": ("d_model", "kv_lora"), "kvn": ("kv_lora",),
+            "wuk": ("kv_lora", "heads", "head_dim"),
+            "wuv": ("kv_lora", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "d_model")}
+
+
 def mla_cache(cfg: ModelConfig, B: int, S: int, dtype, device):
     """The latent cache: the normed KV latent ``ckv`` (B, S, kv_lora_rank)
     and the shared rotary key ``kr`` (B, S, qk_rope_head_dim)."""
@@ -275,7 +310,7 @@ def mla_apply(cfg: ModelConfig, p, x, mode: str, cache, pos):
     wo = p["wo"].reshape(-1, D)
 
     if mode == "decode":
-        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+        pos_t = _decode_pos(pos, B, x.device)
         batched = pos_t.dim() == 1         # per-request positions (serving)
         positions = pos_t[:, None] if batched else pos_t.reshape(1)
         q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(cfg, p, h, positions)
@@ -351,6 +386,20 @@ def rwkv6_init(cfg: ModelConfig, gen, dtype, device):
         "cmu_r": _zeros((D,), dtype, device),
         "cwk": u((D, F_)), "cwv": u((F_, D)), "cwr": u((D, D)),
     }
+
+
+def rwkv6_axes(cfg: ModelConfig):
+    """``rwkv_d2`` (the time mix's inner width) has no sharding rule, so
+    those matrices stay whole on ``model``, as in the reference."""
+    d, d2 = ("d_model",), ("d_model", "rwkv_d2")
+    return {"ln_t": d, "mu_x": d, "mu": (None, "d_model"),
+            "lora_a": ("d_model", None), "lora_b": (None, None, "d_model"),
+            "w0": d, "wa": ("d_model", None), "wb": (None, "d_model"),
+            "u": ("heads", None), "wr": d2, "wk": d2, "wv": d2, "wg": d2,
+            "wo": ("rwkv_d2", "d_model"), "gn": ("heads", None),
+            "ln_c": d, "cmu_k": d, "cmu_r": d,
+            "cwk": ("d_model", "d_ff"), "cwv": ("d_ff", "d_model"),
+            "cwr": d2}
 
 
 def rwkv6_cache(cfg: ModelConfig, B: int, S: int, dtype, device):
@@ -451,6 +500,14 @@ def rglru_init(cfg: ModelConfig, gen, dtype, device):
     }
 
 
+def rglru_axes(cfg: ModelConfig):
+    return {"ln": ("d_model",), "w_x": ("d_model", "lru"),
+            "w_g": ("d_model", "lru"), "conv_w": (None, "lru"),
+            "conv_b": ("lru",), "rg_a": ("heads", None, None),
+            "rg_x": ("heads", None, None), "rg_a_b": ("lru",),
+            "rg_x_b": ("lru",), "lam": ("lru",), "w_out": ("lru", "d_model")}
+
+
 def rglru_cache(cfg: ModelConfig, B: int, S: int, dtype, device):
     W = cfg.lru_width
     return {"conv": _zeros((B, _CONV_W - 1, W), dtype, device),
@@ -512,6 +569,10 @@ def rglru_apply(cfg: ModelConfig, p, x, mode: str, cache, pos):
 def mlp_block_init(cfg: ModelConfig, gen, dtype, device):
     p = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype, device)
     return {"ln": _zeros((cfg.d_model,), dtype, device), **p}
+
+
+def mlp_block_axes(cfg: ModelConfig):
+    return {"ln": ("d_model",), **mlp_axes(cfg.mlp_act)}
 
 
 def mlp_block_apply(cfg: ModelConfig, p, x):

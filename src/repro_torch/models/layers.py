@@ -17,7 +17,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "uinit", "rmsnorm", "layernorm", "norm", "rope", "rope_angles",
-    "sinusoid_pos", "mlp_init", "mlp_apply", "chunked_attention", "decode_attention",
+    "sinusoid_pos", "mlp_init", "mlp_axes", "mlp_apply", "chunked_attention",
+    "decode_attention",
 ]
 
 _NEG_INF = -1e30
@@ -30,11 +31,13 @@ def uinit(gen: torch.Generator, shape, scale: Optional[float], dtype,
           device) -> torch.Tensor:
     """Scaled-uniform (LeCun-ish) initializer; scale defaults to
     1/sqrt(fan_in).  Drawn in fp32 on the generator's device, then moved
-    and cast; it cannot give ``jax.random``'s bits."""
+    and cast; it cannot give ``jax.random``'s bits.  On ``meta`` (shapes
+    only, for the dry run) nothing is drawn or allocated."""
     if scale is None:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = 1.0 / math.sqrt(max(1, fan_in))
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    on = device if torch.device(device).type == "meta" else gen.device
+    t = torch.empty(shape, dtype=torch.float32, device=on)
     t.uniform_(-scale, scale, generator=gen)
     return t.to(device=device, dtype=dtype)
 
@@ -119,6 +122,15 @@ def mlp_init(gen, d: int, f: int, act: str, dtype, device):
             "wo": uinit(gen, (f, d), None, dtype, device),
             "bi": torch.zeros((f,), dtype=dtype, device=device),
             "bo": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def mlp_axes(act: str):
+    """The logical axes of :func:`mlp_init`'s leaves."""
+    if act in ("swiglu", "gelu_gated"):
+        return {"wg": ("d_model", "d_ff"), "wu": ("d_model", "d_ff"),
+                "wd": ("d_ff", "d_model")}
+    return {"wi": ("d_model", "d_ff"), "wo": ("d_ff", "d_model"),
+            "bi": ("d_ff",), "bo": ("d_model",)}
 
 
 def mlp_apply(p, x, act: str):

@@ -16,10 +16,10 @@ after the other: the same function, and deterministic on the card, where
 ``index_add_`` adds with atomics in a run-dependent order.
 
 The reference's ``ep_spec`` argument (a GSPMD sharding hint for the
-dispatch buffer) means nothing on one card without a mesh, so
-:func:`moe_apply` does not take it; it comes back with the launch tools
-(``ROADMAP.md``).  Routing groups (:func:`set_groups`) are kept: they
-change which tokens compete for capacity.
+dispatch buffer) steers only XLA's partitioner, so :func:`moe_apply` does
+not take it; the port's dry run reads the same layout from its plan
+(``launch.shardings.Plan.ep_spec``).  Routing groups (:func:`set_groups`)
+are kept: they change which tokens compete for capacity.
 """
 from __future__ import annotations
 
@@ -28,10 +28,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels import meta_cost
 from .config import ModelConfig
 from .layers import norm, uinit
 
-__all__ = ["moe_init", "moe_apply", "router_probs", "capacity",
+__all__ = ["moe_init", "moe_axes", "moe_apply", "router_probs", "capacity",
            "set_groups", "get_groups"]
 
 # Number of independent routing groups: each routes its own tokens, with
@@ -70,6 +71,20 @@ def moe_init(cfg: ModelConfig, gen, dtype, device):
         if cfg.shared_gate:
             p["sgate"] = u((D, 1), 0.02)
     return p
+
+
+def moe_axes(cfg: ModelConfig):
+    """The logical axes of :func:`moe_init`'s leaves."""
+    a = {"ln": ("d_model",), "router": ("d_model", None),
+         "wg": ("experts", "d_model", "d_expert"),
+         "wu": ("experts", "d_model", "d_expert"),
+         "wd": ("experts", "d_expert", "d_model")}
+    if cfg.d_shared:
+        a.update(swg=("d_model", "d_shared"), swu=("d_model", "d_shared"),
+                 swd=("d_shared", "d_model"))
+        if cfg.shared_gate:
+            a["sgate"] = ("d_model", None)
+    return a
 
 
 def router_probs(cfg: ModelConfig, p, x):
@@ -151,8 +166,9 @@ def moe_apply(cfg: ModelConfig, p, x):
     B, T, D = x.shape
     x2d, logits, probs = router_probs(cfg, p, x)
     G = _GROUPS if (B * T) % _GROUPS == 0 else 1
-    y = _dispatch_compute(cfg, p, x2d.reshape(G, (B * T) // G, D),
-                          probs.reshape(G, (B * T) // G, -1))
+    with meta_cost.region("moe_dispatch"):     # tagged for the dry run
+        y = _dispatch_compute(cfg, p, x2d.reshape(G, (B * T) // G, D),
+                              probs.reshape(G, (B * T) // G, -1))
     y = y.reshape(B * T, D)
 
     if cfg.d_shared:

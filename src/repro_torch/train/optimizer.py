@@ -18,9 +18,8 @@ it is decayed, and factored across layers when ``count > 1``; only the
 top-level ``final_norm`` ``(D,)`` escapes both.  The port mirrors that.
 
 The schedule and the bias corrections are computed in fp32 tensors, as the
-reference computes them, so that they round alike.  ``opt_axes`` (the
-optimizer state's sharding axes) comes with the sharding tables
-(``ROADMAP.md``).
+reference computes them, so that they round alike.  ``opt_axes`` gives
+the state's logical axes, which ``launch.shardings`` maps onto a mesh.
 """
 from __future__ import annotations
 
@@ -33,7 +32,8 @@ import torch
 from .tree import flatten, flatten_up_to, leaves, tree_map, unflatten
 
 __all__ = ["OptConfig", "OptState", "init_opt_state", "adamw_update",
-           "adafactor_update", "update", "lr_schedule", "global_norm"]
+           "adafactor_update", "update", "opt_axes", "lr_schedule",
+           "global_norm"]
 
 Tree = Any
 
@@ -90,6 +90,30 @@ def init_opt_state(params: Tree, factored: bool = False) -> OptState:
     mu = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.bfloat16,
                                         device=p.device), params)
     return OptState(step, mu, tree_map(nu_leaf, params))
+
+
+def is_axes(x) -> bool:
+    """A leaf of a logical-axes tree: a tuple of axis names or None."""
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def opt_axes(param_axes: Tree, param_shapes: Tree, factored: bool = False
+             ) -> OptState:
+    """The logical axes of :func:`init_opt_state`'s state (``step`` has
+    none); under ``factored``, a factored leaf's ``vr`` drops the last axis
+    and its ``vc`` the one before."""
+    if not factored:
+        return OptState((), param_axes, param_axes)
+
+    def nu_axes(ax, p):
+        if _factored_leaf(p):
+            return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+        return ax
+
+    return OptState((), param_axes,
+                    tree_map(nu_axes, param_axes, param_shapes,
+                             is_leaf=is_axes))
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ gradient norm) adds in the reference's order, and a checkpoint's
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 __all__ = ["leaves", "flatten", "unflatten", "flatten_up_to", "tree_map"]
 
@@ -35,11 +35,17 @@ def _children(node):
     return None
 
 
-def flatten(tree: Tree) -> Tuple[List[Any], Any]:
-    """(leaves in JAX's order, a structure :func:`unflatten` rebuilds)."""
+def flatten(tree: Tree, is_leaf: Optional[Callable[[Any], bool]] = None
+            ) -> Tuple[List[Any], Any]:
+    """(leaves in JAX's order, a structure :func:`unflatten` rebuilds);
+    a node for which ``is_leaf`` holds is a leaf (a tuple of axis names,
+    say), as ``jax.tree.flatten``'s ``is_leaf``."""
     out: List[Any] = []
 
     def walk(node):
+        if is_leaf is not None and is_leaf(node):
+            out.append(node)
+            return "*"
         c = _children(node)
         if c is None:
             out.append(node)
@@ -76,11 +82,12 @@ def leaves(tree: Tree) -> List[Any]:
     return flatten(tree)[0]
 
 
-def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+def tree_map(fn: Callable, tree: Tree, *rest: Tree,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Tree:
     """``fn`` over the leaves of ``tree`` and the matching subtrees of
     ``rest`` (which must have at least ``tree``'s structure, as
     ``jax.tree.map``)."""
-    flat, s = flatten(tree)
+    flat, s = flatten(tree, is_leaf)
     others = [flatten_up_to(s, r) for r in rest]
     return unflatten(s, [fn(*xs) for xs in zip(flat, *others)])
 

@@ -14,10 +14,12 @@ collective seconds a step, bytes a device) becomes a DFRS *job type* whose
   by ``chips_per_task`` when simulating at slice granularity).
 
 ``tpu_trace`` samples a Poisson mixture over job types to produce a cluster
-workload for the scheduler.  The records are those the JAX package's
-dry run writes (``arch``, ``shape``, ``compute_s``, ``memory_s``,
-``collective_s``, ``bytes_per_device``, ``n_chips``); this package reads
-that format and has no dry run of its own.
+workload for the scheduler.  The records (``arch``, ``shape``,
+``compute_s``, ``memory_s``, ``collective_s``, ``bytes_per_device``,
+``n_chips``) come from a dry run: this package's own
+(``python -m repro_torch.launch.dryrun``, turned into these records by
+``repro_torch.launch.roofline.jobgen_records``), or the JAX package's,
+which writes the same format.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither jax nor the JAX package (nor
-do ``chip_smoke.py``, ``ab_alloc.py`` and ``ab_prefill.py``), and its
+do ``chip_smoke.py``, ``ab_alloc.py``, ``ab_prefill.py`` and
+``ab_serve.py``; the launch
+tools, the dry run among them, included), and its
 device entry points (the sweeps, ``api.sweep``, the tuner's races, the
 session server, the CLI and the legacy wrappers included) run on the card
 unless told otherwise."""
@@ -52,7 +54,8 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
     src = ROOT / "src"
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py"),
-         str(ROOT / "ab_alloc.py"), str(ROOT / "ab_prefill.py")],
+         str(ROOT / "ab_alloc.py"), str(ROOT / "ab_prefill.py"),
+         str(ROOT / "ab_serve.py")],
         capture_output=True, text=True, timeout=120,
         env={**os.environ, "PYTHONPATH": str(src)})
     assert proc.returncode == 0, proc.stderr
@@ -78,7 +81,9 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
                 "train.optimizer", "train.compression", "train.data",
                 "train.checkpoint", "train.trainer", "train.ft",
                 "launch.train", "models.moe", "configs.qwen2_moe_a2_7b",
-                "configs.deepseek_v3_671b"):
+                "configs.deepseek_v3_671b", "launch.mesh",
+                "launch.shardings", "launch.roofline", "launch.cost",
+                "launch.dryrun", "kernels.meta_cost"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
