@@ -24,9 +24,11 @@ fails ends the run with exit code 1:
                not exact); the node-usage scatter against its plain
                version and in-order np.add.at at the stretch passes' paper
                shapes (16 lanes, 128 nodes, up to 128 x 32 entries) and
-               ragged ones, with padding sentinels, entries outside the
-               nodes, an empty lane and a node whose sum depends on the
-               order of its adds;
+               ragged ones (against a CTA's 8 nodes, a warp's 32 entries
+               and a tile's 2,048), with padding sentinels, entries outside
+               the nodes and negative ids, an empty lane, no entries, one
+               lane, a lane whose every entry names one node and a node
+               whose sum depends on the order of its adds;
 3. allocator — the batched OPT=MIN water-filling and the OPT=AVG floor on
                the card against the numpy kernels, 200 seeded random
                incidences each, bit for bit;
@@ -34,8 +36,8 @@ fails ends the run with exit code 1:
                128 nodes, load 0.7: OPT=MIN seeds, two OPT=AVG cells, two
                EASY cells) on the card; every outcome field of every record
                must equal the host numpy ``Engine`` run of the same cell
-               (timed, with its allocation share; see "host checks"
-               below);
+               (timed, with its allocation share; see "host checks" and
+               "parts" below);
                the kernel launch counts (and the solve's routes) are
                zeroed just before and read just after; ``torch.profiler`` traces the card's activity over the
                run for the device's busy share; peak device memory is
@@ -96,12 +98,21 @@ fails ends the run with exit code 1:
                races, rungs and walls; launch counts, shapes, busy share
                and peak memory by part as in phase 4; (b)'s and (c)'s host
                runs go to the host checks;
-   host checks — the host reference runs of phases 4-4d (phase 4's 20
-               cells, 4b's 10, 4c's whole log and 9 branches, 4d's chaos
-               session and two tuned sessions) in one pool of processes,
-               one a core, the longest first, once the card's runs of all
-               four phases have ended (so no card wall overlaps a host
-               run); then each phase's check and line, in phase order;
+   host checks — each phase's host reference runs (phase 4's 20 cells,
+               4b's 10, 4c's whole log and 9 branches, 4d's chaos session
+               and two tuned sessions) in a pool of processes at nice 10,
+               one a job up to one a core, the longest first, once the
+               phase's card runs have ended; then the phase's check and
+               line;
+   parts     — phases 4 and 4e (4e takes phase 4's seed-0 pair as its
+               yardstick), 4b, 4c, 4d (a), 4d (b)-(c) and 10 (a) are
+               driven by the host, the card idle through most of them:
+               each runs in a process of its own (``chip_smoke.py --part
+               <name>``), all six started together once phase 3 has
+               ended, so their walls overlap one another (never a phase
+               of 5-10's); the script prints each part's lines, in phase
+               order, once it has ended, then 4d's line, and fails if any
+               part failed;
 4e. slice serve — the multi-tenant session server, every session on the
                card, 128 nodes: (a) a ``ServerThread`` (store, 64 live,
                no fsync) and 4 tenants, each a client in its own thread,
@@ -141,7 +152,13 @@ fails ends the run with exit code 1:
                scan on both routes (both sides of the threshold, T short
                of a chunk and ragged against it; the sequential route bit
                for bit, the chunked one bit for bit against its own plain
-               algorithm); and at RWKV6-7B's (a decode step of 4 slots, a
+               algorithm); its gated route (the layer's gate chain fused
+               into the recurrence, bf16 and fp32, a decode step of 4 x
+               2,560, T one short of the threshold, a ragged width, T = 0,
+               hT written over h0, and the gradients of a differentiable
+               call) against the chain run operator by operator, bit
+               equality reported; and at RWKV6-7B's (a decode step of 4
+               slots, a
                prefill of 2,000 tokens on both routes, fp32 and bf16, both
                sides of the threshold, a ragged dk != dv, T short of a
                chunk and ragged against it and its sub-chunks, decays down
@@ -234,7 +251,8 @@ fails ends the run with exit code 1:
                (Whisper's cross-attention decode too), every
                prefill launch of the RG-LRU scan and of the WKV recurrence
                on the chunked route and every decode launch on the
-               sequential one; then the serve's last wave
+               sequential one (the RG-LRU's on its gated route); then the
+               serve's last wave
                (its last 4 requests, the served prompts, at most 16 new
                tokens each) is replayed on a fresh server under
                ``torch.profiler`` for the card's busy share and kernel time
@@ -263,8 +281,11 @@ fails ends the run with exit code 1:
                WKV recurrence have an entry per route (decode on the
                sequential route, the median served prompt on the chunked
                one, with the sequential route's time at that shape
-               beside it), with the ptxas registers and spills of the
-               route's kernel functions; beside each model kernel, its
+               beside it; the RG-LRU's decode step also on its gated
+               route, which the serve takes, so its sequential route is
+               off the path and timed beside ``torch.addcmul``), with the
+               ptxas registers and spills of the route's kernel
+               functions; beside each model kernel, its
                launches on the training path (phase 9);
 9. train     — the training path, fp32, AdamW unless said: (b) ``python -m repro_torch.launch.train``
                as a process at SmolLM-360M's full size (32 layers, d_model
@@ -297,8 +318,8 @@ fails ends the run with exit code 1:
                0.05), and every kernel launch counted on its instance.
 
 10. dry run  — (a) ``python -m repro_torch.launch.dryrun`` (its ``main``)
-               over every shape and both meshes, one job an arch in the
-               host checks' pool (beside no timed card run): all 80
+               over every shape and both meshes, one job an arch in a
+               host pool, a part of its own (see "parts"): all 80
                (arch x shape x mesh) records ``ok``, or ``skipped``
                exactly where ``shape_applicable`` says; each cell's
                bottleneck, three roofline terms and GiB a device, and each
@@ -404,11 +425,13 @@ TUNE_PAPER_SPEC = ("every=5000;horizon=4000;rungs=2;margin=0.01;dwell=0;"
 TUNE_PAPER_UNTIL_S = 80_000.0
 
 _NEED_EPS, _TIE_TOL, _CAP_TOL = 1e-12, 1e-15, 1e-12   # as in the solve
+HOST_NICE = 10          # the host reference pools' workers
 
 # the port's kernels, by the names the profiler gives them
 _PORT_KERNELS = ("alloc_matvec_kernel", "maxmin_solve_kernel", "attn_kernel",
                  "attn_wgmma_kernel", "decode_kernel", "decode_mma_kernel",
                  "decode_combine_kernel", "rglru_scan_kernel",
+                 "rglru_gated_kernel",
                  "rglru_chunk_summary_kernel", "rglru_chunk_out_kernel",
                  "wkv6_kernel", "wkv6_chunk_state_kernel",
                  "wkv6_chunk_prefix_kernel", "wkv6_chunk_out_kernel")
@@ -850,17 +873,27 @@ def node_usage_checks(torch, np, rng):
     """The node-usage kernel against its plain version on the card and
     against in-order np.add.at, bit for bit: at the stretch passes' paper
     shapes (16 lanes, 128 nodes, up to 128 x 32 entries), and at shapes
-    ragged against a block's 128 nodes and a tile's 2,048 entries.  Also
-    returns the paper shape's inputs and both results, which the kernels
-    line times."""
+    ragged against a CTA's 8 nodes, a warp's 32 entries and a tile's 2,048
+    entries; a lane whose every entry names one node (4,096 serial adds),
+    negative ids, no entries, and one lane.  Also returns the paper shape's
+    inputs and both results, which the kernels line times."""
     from repro_torch.kernels.node_usage import (node_usage_cuda,
                                                 node_usage_plain)
 
     dev = torch.device("cuda")
     checks, paper = [], None
-    for B, N, K in [(16, N_NODES, N_NODES * 32), (16, 128, 640), (3, 5, 37),
-                    (4, 200, 2049), (2, 16, 0)]:
+    for case, B, N, K in [
+            ("paper", 16, N_NODES, N_NODES * 32), ("ragged", 16, 128, 640),
+            ("small", 3, 5, 37), ("tile_ragged", 4, 200, 2049),
+            ("no_entries", 2, 16, 0), ("one_node", 2, 128, 4096),
+            ("negative_ids", 3, 64, 300), ("k_ragged", 4, 128, 1000),
+            ("n_ragged", 4, 203, 2049), ("one_lane", 1, 128, 4096)]:
         nodes, vals = usage_lists(np, rng, B, N, K)
+        if case == "one_node":
+            nodes[0] = 77                   # K serial adds into one node
+        elif case == "negative_ids":
+            neg = rng.random((B, K)) < 0.3
+            nodes[neg] = -rng.integers(1, N + 1, int(neg.sum()))
         nt = torch.from_numpy(nodes).to(dev)
         vt = torch.from_numpy(vals).to(dev)
         k = node_usage_cuda(nt, vt, N)
@@ -870,7 +903,7 @@ def node_usage_checks(torch, np, rng):
             paper = {"nodes": nt, "vals": vt, "n_nodes": N, "kernel": k,
                      "plain": p,
                      "adds": int(((nodes >= 0) & (nodes < N)).sum())}
-        check = {"kernel": "node_usage", "shape": [B, N, K],
+        check = {"kernel": "node_usage", "case": case, "shape": [B, N, K],
                  "equal_plain": bool(torch.equal(k, p)),
                  "equal_numpy": bool(np.array_equal(
                      k.cpu().numpy(), add_at_usage(np, nodes, vals, N)))}
@@ -1086,60 +1119,25 @@ def host_pool(items):
     job up to one a core, the jobs handed out in the order given.  The
     fork server imports this script and the port once, so a worker starts
     with them loaded.  Callers start it only once the card's timed runs
-    that it checks have ended, so a card wall never overlaps it.  Returns
+    that it checks have ended; its workers run at nice 10, so that the
+    other parts' card runs, which share the host, go first.  Returns
     (results in order, the pool's wall)."""
     import multiprocessing
 
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("forkserver")
     ctx.set_forkserver_preload(["__main__", "repro_torch.api"])
-    with ctx.Pool(min(len(items), os.cpu_count() or 1)) as pool:
+    with ctx.Pool(min(len(items), os.cpu_count() or 1),
+                  initializer=os.nice, initargs=(HOST_NICE,)) as pool:
         out = list(pool.imap(_call, items, chunksize=1))
     return out, time.perf_counter() - t0
 
 
-class HostChecks:
-    """The host reference runs of phases 4-4d, gathered as the phases hand
-    them over and run together in one :func:`host_pool` once the card's
-    runs of all four phases have ended (the longest jobs first); then each
-    phase's check (``finish(results, pool wall)``, which emits the phase's
-    line and raises :class:`PhaseFailed`) in phase order.  Files the jobs
-    read live in ``tmp`` until then."""
-
-    def __init__(self):
-        import tempfile
-        self._dir = tempfile.TemporaryDirectory()
-        self.tmp = self._dir.name
-        self.items = []
-
-    def add(self, name, fn, jobs, finish, first=False):
-        self.items.append((name, fn, list(jobs), finish, first))
-
-    def run(self):
-        """Runs every job, then every check; returns each check's result
-        by name."""
-        order = sorted(range(len(self.items)),
-                       key=lambda i: not self.items[i][4])
-        flat = [(i, (self.items[i][1], job)) for i in order
-                for job in self.items[i][2]]
-        try:
-            results, wall = host_pool([item for _, item in flat])
-        finally:
-            self._dir.cleanup()
-        by_item = {i: [] for i in order}
-        for (i, _), r in zip(flat, results):
-            by_item[i].append(r)
-        return {name: finish(by_item[i], wall)
-                for i, (name, _, _, finish, _) in enumerate(self.items)}
-
-
-def defer(checks, name, fn, jobs, finish, first=False):
-    """Hands ``jobs`` and their check to ``checks``; with no ``checks``
-    (a phase called alone), runs them now and returns the check's
-    result."""
-    if checks is not None:
-        checks.add(name, fn, jobs, finish, first)
-        return None
+def host_check(fn, jobs, finish):
+    """A phase's host reference runs, ``fn(job)`` for each of ``jobs`` in
+    a :func:`host_pool`, then its check, ``finish(results, pool wall)``
+    (which emits the phase's line and raises :class:`PhaseFailed`);
+    returns what the check returned."""
     results, wall = host_pool([(fn, job) for job in jobs])
     return finish(results, wall)
 
@@ -1189,11 +1187,10 @@ def sweep_line(run):
             **_shapes(run["res"].alloc_stats)}
 
 
-def phase_slice(torch, np, checks=None):
-    """Phase 4 on the card; its host check goes to ``checks``
-    (:class:`HostChecks`), whose result is the seed-0 OPT=MIN cell on the
-    card and on the host, phase 4e's yardstick.  Returns the launch
-    counts, the allocator's stats and (with no ``checks``) that pair."""
+def phase_slice(torch, np):
+    """Phase 4 on the card, then its host check.  Returns the launch
+    counts, the allocator's stats and the seed-0 OPT=MIN cell on the card
+    and on the host, phase 4e's yardstick."""
     from repro_torch.sched.sweep import Cell
     from repro_torch.workloads.registry import WorkloadSpec
 
@@ -1224,15 +1221,15 @@ def phase_slice(torch, np, checks=None):
             raise PhaseFailed("the slice disagrees with the host run or did "
                               "not reach a kernel")
         return res.records[0], checked["host_results"][0]
-    seed0 = defer(checks, "slice", _host_cell, cells, finish)
+    seed0 = host_check(_host_cell, cells, finish)
     return launches, res.alloc_stats, seed0
 
 
-def phase_slice_mcb8(torch, np, checks=None):
+def phase_slice_mcb8(torch, np):
     """The paper's MCB8 policy family on the card: MCB8 re-packs, the /per
     and /stretch-per passes, each followed by the §4.6 reallocation
-    through the lockstep dispatcher, on Lublin and on HPC2N; the host
-    check goes to ``checks`` (:class:`HostChecks`), or runs now."""
+    through the lockstep dispatcher, on Lublin and on HPC2N; then the
+    host check."""
     from repro_torch.sched.sweep import Cell
     from repro_torch.workloads.registry import WorkloadSpec
 
@@ -1267,8 +1264,7 @@ def phase_slice_mcb8(torch, np, checks=None):
         if not ok:
             raise PhaseFailed("the MCB8 slice disagrees with the host run or "
                               "did not reach a kernel")
-    # the MCB8 cells are the longest host runs: handed out first
-    defer(checks, "slice mcb8", _host_cell, cells, finish, first=True)
+    host_check(_host_cell, cells, finish)
 
 
 def write_swf_log(np, path, n_jobs, seed, mean_gap):
@@ -1468,14 +1464,20 @@ def branches_check(np, line, host):
             "mismatches": mismatches}
 
 
-def phase_slice_session(torch, np, checks=None):
+def phase_slice_session(torch, np):
     """Open sessions on the card: a long swf log streamed with row
-    compaction, and what-if branches raced in lockstep; the host checks
-    go to ``checks`` (:class:`HostChecks`), or run now."""
-    own = checks is None
-    checks = HostChecks() if own else checks
-    stream, stream_job = session_stream(torch, np, checks.tmp)
-    branches, branch_jobs = session_branches(torch, np, checks.tmp)
+    compaction, and what-if branches raced in lockstep; then the host
+    checks, which read the log and the snapshot from a temporary
+    directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return _slice_session(torch, np, tmp)
+
+
+def _slice_session(torch, np, tmp):
+    stream, stream_job = session_stream(torch, np, tmp)
+    branches, branch_jobs = session_branches(torch, np, tmp)
 
     def finish(hosts, pool_wall):
         s = stream_check(np, stream, hosts[0])
@@ -1492,10 +1494,7 @@ def phase_slice_session(torch, np, checks=None):
             raise PhaseFailed("a session disagrees with the host run, or "
                               "did not reach a kernel")
     # the whole log's host run is the longest job: handed out first
-    checks.add("slice session", _session_host, [stream_job] + branch_jobs,
-               finish, first=True)
-    if own:
-        checks.run()
+    host_check(_session_host, [stream_job] + branch_jobs, finish)
     return {"stream": stream["launches"], "branches": branches["launches"]}
 
 
@@ -1795,43 +1794,54 @@ def tune_check(line, host):
             "result_equal": result == h_result}
 
 
-def phase_slice_scenarios(torch, np, checks=None):
+def phase_slice_scenarios(torch, np):
     """Scenario grids on the card against the supervised host pool, a
     record cache, a chaos session restored mid-run, and the autotuner;
-    the chaos and tuner host runs go to ``checks`` (:class:`HostChecks`),
-    or run now."""
+    then the chaos and tuner host runs and the phase's check.  Returns
+    the launch counts by part."""
+    return scenarios_check(scenarios_grid(torch, np),
+                           scenarios_sessions(torch, np))
+
+
+def scenarios_grid(torch, np):
+    """Phase 4d (a) and its line: :func:`scenario_grid`, and the part's
+    seconds."""
     import tempfile
 
     t0 = time.perf_counter()
-    # each part's line as it ends: a run cut short still shows the parts
     with tempfile.TemporaryDirectory() as tmp:
         grid_part = scenario_grid(torch, np, tmp)
-        emit({"phase": "slice scenarios", "part": "grid", **grid_part})
+    emit({"phase": "slice scenarios", "part": "grid", **grid_part})
+    return grid_part, time.perf_counter() - t0
+
+
+def scenarios_sessions(torch, np):
+    """Phase 4d (b) and (c) on the card, then their host runs and their
+    lines.  Returns (the chaos line, the tune lines by name, the host
+    pool's wall, the card runs' seconds)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
         chaos, chaos_job = chaos_session(torch, np, tmp)
     tune, tune_jobs = tuned_sessions(torch, np)
     card_s = time.perf_counter() - t0
-    launches = {"grid": grid_part["launches"],
-                "sweep": grid_part["sweep"]["first_launches"],
-                "chaos": chaos["launches"], "tune_demo": tune["demo"][
-                    "launches"], "tune_paper": tune["paper"]["launches"]}
 
     def finish(hosts, pool_wall):
-        scenarios_check(np, grid_part, chaos, tune, tune_jobs, hosts,
-                        pool_wall, card_s)
-    defer(checks, "slice scenarios", _scenario_host,
-          [chaos_job] + tune_jobs, finish)
-    return launches
+        checked = chaos_check(np, chaos, hosts[0])
+        emit({"phase": "slice scenarios", "part": "chaos", **checked})
+        tuned = {k: tune_check(tune[k], h)
+                 for k, h in zip(tune_jobs, hosts[1:])}
+        emit({"phase": "slice scenarios", "part": "tune",
+              "host_pool_wall_s": pool_wall, **tuned})
+        return checked, tuned, pool_wall, card_s
+    return host_check(_scenario_host, [chaos_job] + tune_jobs, finish)
 
 
-def scenarios_check(np, grid_part, chaos, tune, tune_jobs, hosts, pool_wall,
-                    card_s):
-    """Phase 4d's (b) and (c) lines with their host checks, then the
-    phase's line."""
-    chaos = chaos_check(np, chaos, hosts[0])
-    emit({"phase": "slice scenarios", "part": "chaos", **chaos})
-    tune = {k: tune_check(tune[k], h) for k, h in zip(tune_jobs, hosts[1:])}
-    emit({"phase": "slice scenarios", "part": "tune",
-          "host_pool_wall_s": pool_wall, **tune})
+def scenarios_check(grid, sessions):
+    """Phase 4d's line from its parts, :func:`scenarios_grid` and
+    :func:`scenarios_sessions`; returns the launch counts by part."""
+    (grid_part, grid_s), (chaos, tune, pool_wall, card_s) = grid, sessions
     sw = grid_part["sweep"]
     demo, paper = tune["demo"], tune["paper"]
     ok = (not grid_part["mismatches"] and grid_part["quarantined"] == 0
@@ -1849,7 +1859,8 @@ def scenarios_check(np, grid_part, chaos, tune, tune_jobs, hosts, pool_wall,
           and demo["result_equal"] and demo["launches"]["maxmin_solve"] > 0
           and paper["decisions_equal"] and paper["result_equal"]
           and paper["launches"]["maxmin_solve"] > 0)
-    emit({"phase": "slice scenarios", "ok": ok, "card_parts_wall_s": card_s,
+    emit({"phase": "slice scenarios", "ok": ok,
+          "card_parts_wall_s": grid_s + card_s,
           "parts_wall_s": {"grid": grid_part["wall_s"],
                            "host_pool": grid_part["host_pool_wall_s"],
                            "sweep": sw["first_wall_s"] + sw["second_wall_s"],
@@ -1861,6 +1872,9 @@ def scenarios_check(np, grid_part, chaos, tune, tune_jobs, hosts, pool_wall,
         raise PhaseFailed("a scenario grid, the chaos session or a tuned "
                           "session disagrees with its host run, or did not "
                           "reach a kernel")
+    return {"grid": grid_part["launches"], "sweep": sw["first_launches"],
+            "chaos": chaos["launches"], "tune_demo": demo["launches"],
+            "tune_paper": paper["launches"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -2275,7 +2289,8 @@ WHISPER, INTERNVL = "whisper-large-v3", "internvl2-76b"
 # the instance each kernel must take in a served prefill and decode
 # (ops.routes): bf16 attention on the tensor cores, attn_wgmma_kernel<NVP>
 # with NVP = hdv / 64 and decode_mma_kernel<TQ, 1> for groups up to 16; the
-# recurrences chunked in prefill, sequential in decode
+# recurrences chunked in prefill, sequential in decode (the RG-LRU's decode
+# on its gated route, the gates fused in)
 _RECURRENT_ROUTES = {"prefill": "chunked", "decode": "sequential"}
 # per arch: the kernels its path launches and their instances, the model
 # check's depth, prompt and weight seed (and its cache types), the serve's
@@ -2286,7 +2301,8 @@ SERVE_ARCHS = {
     RG: {"kernels": ("flash_attention", "flash_decode", "rglru_scan"),
          "routes": {"flash_attention": {"prefill": "wgmma<4>"},
                     "flash_decode": {"decode": "mma<1>"},
-                    "rglru_scan": _RECURRENT_ROUTES},
+                    "rglru_scan": {"prefill": "chunked",
+                                   "decode": "gated"}},
          "check_layers": 3, "check_prompt": 2100, "check_seed": 2402,
          # three of seed 60's eight prompts decode past the 2,048 window
          "max_new": 96, "seed": 60, "serve_layers": 13},
@@ -2708,6 +2724,7 @@ def phase_serve_kernels(torch):
                        and _within(torch, hT, hTp, RGLRU_ATOL, RGLRU_RTOL)
                        and (bit_equal if taken == "sequential"
                             else chunked_equal)})
+    checks += rglru_gated_checks(torch, gen)
     # (label, B, T, H, dk, dv, r/k/v dtype, lowest decay, route: None for
     # the one wkv6_route picks)
     wt = rwkv.CHUNKED_MIN_T
@@ -2753,8 +2770,9 @@ def phase_serve_kernels(torch):
                                 and torch.equal(state, sT))})
     routes = {k: {c["route"] for c in checks if c["kernel"] == k}
               for k in ("rglru_scan", "wkv6")}
-    ok = all(c["ok"] for c in checks) and all(
-        v == {"sequential", "chunked"} for v in routes.values())
+    ok = all(c["ok"] for c in checks) and routes == {
+        "rglru_scan": {"sequential", "chunked", "gated"},
+        "wkv6": {"sequential", "chunked"}}
     emit({"phase": "serve kernels", "ok": ok,
           "tolerance": {"float32": TOL["float32"], "bfloat16": TOL["bfloat16"],
                         "rglru_scan": [RGLRU_ATOL, RGLRU_RTOL],
@@ -2763,6 +2781,70 @@ def phase_serve_kernels(torch):
     if not ok:
         raise PhaseFailed("a serving kernel disagrees with its plain version "
                           "or a route of a recurrence went unchecked")
+
+
+def gated_inputs(torch, gen, B, T, W, dtype):
+    """The RG-LRU's gated route's inputs: the conv output and the two
+    block-diagonal products before their biases (B, T, W), the biases and
+    lam (W,), all in ``dtype``, and h0 (B, W) fp32; the products wide
+    enough to saturate the sigmoids, lam of both signs."""
+    xs = [_randn(torch, gen, (B, T, W), dtype) * s for s in (1.0, 3.0, 3.0)]
+    ws = [_randn(torch, gen, (W,), dtype) * s for s in (0.5, 0.5, 2.0)]
+    return (*xs, *ws, _randn(torch, gen, (B, W), torch.float32))
+
+
+def rglru_gated_checks(torch, gen):
+    """The RG-LRU's gated route (the gate chain fused into the recurrence)
+    against the chain run operator by operator on the card, bf16 and fp32:
+    a RecurrentGemma-2B decode step (4 slots x 2,560), T one short of the
+    chunked route's threshold, a ragged width, T = 0; hT written over h0 as
+    a serving slot's state; and one differentiable call through ``ops``
+    (kernel forward, the plain chain's backward) against autograd of the
+    plain chain.  Held to the recurrence's tolerance, bit equality
+    reported."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rglru
+
+    bf, f32 = torch.bfloat16, torch.float32
+    rt = rglru.CHUNKED_MIN_T
+    checks = []
+    for B, T, W, dt in [(4, 1, 2560, bf), (4, 1, 2560, f32),
+                        (1, rt - 1, 2560, bf), (2, 37, 100, bf),
+                        (3, 5, 64, f32), (2, 0, 64, bf)]:
+        args = gated_inputs(torch, gen, B, T, W, dt)
+        h, hT = rglru.rglru_gated_cuda(*args)
+        hp, hTp = rglru.rglru_gated_plain(*args)
+        state = args[-1].clone()                 # a serving slot's state
+        h2, hT2 = rglru.rglru_gated_cuda(*args[:-1], state, state_out=state)
+        torch.cuda.synchronize()
+        in_place = bool(hT2 is state and torch.equal(h2, h)
+                        and torch.equal(state, hT))
+        checks.append({"kernel": "rglru_scan", "route": "gated",
+                       "dtype": _dtype_name(torch, dt), "shape": [B, T, W],
+                       "max_abs_err": max(_err(h, hp), _err(hT, hTp)),
+                       "bit_equal": bool(torch.equal(h, hp)
+                                         and torch.equal(hT, hTp)),
+                       "in_place_equal": in_place,
+                       "ok": in_place
+                       and _within(torch, h, hp, RGLRU_ATOL, RGLRU_RTOL)
+                       and _within(torch, hT, hTp, RGLRU_ATOL, RGLRU_RTOL)})
+    leaves = [t.requires_grad_() for t in gated_inputs(torch, gen, 2, 3, 64,
+                                                       f32)]
+    seed = torch.randn((2, 3, 64), generator=gen, device="cuda")
+    grads = []
+    for fn in (ops.rglru_gated, rglru.rglru_gated_plain):
+        h, hT = fn(*leaves)
+        grads.append(torch.autograd.grad((h * seed).sum() + hT.sum(),
+                                         leaves))
+    err = max(_err(g, w) for g, w in zip(*grads))
+    checks.append({"kernel": "rglru_scan", "route": "gated",
+                   "case": "gradients", "dtype": "float32",
+                   "shape": [2, 3, 64], "max_abs_err": err,
+                   "bit_equal": all(torch.equal(g, w)
+                                    for g, w in zip(*grads)),
+                   "ok": all(_within(torch, g, w, RGLRU_ATOL, RGLRU_RTOL)
+                             for g, w in zip(*grads))})
+    return checks
 
 
 def phase_model_check(torch, np, arch, spec):
@@ -3558,15 +3640,70 @@ def serve_kernel_entries(torch, np, served, functions, hgmma,
          "wrapper": "src/repro_torch/kernels/rglru_scan.py",
          "replaces": "src/repro/kernels/rglru_scan.py:63",
          "dtype": "float32"})
+    # the sequential route serves callers of the reference's function; the
+    # serve's decode takes the gated one
+    seq = next(e for e in entries if e["name"] == "rglru_scan"
+               and e["instance"] == "sequential")
+    a, b, h0 = scan_inputs(SERVE_SLOTS, 1)
+    seq.update(on_main_path=False, library="torch.addcmul",
+               library_note="b + a * h0 at T = 1 in one call (may round "
+                            "as an FMA)",
+               library_ms=device_ms(
+                   torch, lambda: torch.addcmul(b[:, 0], a[:, 0], h0), 200))
+    entries.append(gated_entry(
+        torch, gated_inputs(torch, gen, SERVE_SLOTS, 1, W, torch.bfloat16),
+        routes["rglru_scan"].get("gated", 0), rglru_functions))
     tol = {"flash_attention": TOL["bfloat16"], "flash_decode": TOL["bfloat16"],
            "rglru_scan": RGLRU_ATOL}
     subs = [e[k] for e in entries for k in _SUB_ENTRY.values() if k in e]
-    ok = all(f["launches"] > 0 and f["max_abs_err"] <= tol[e["name"]]
+    ok = all((f["launches"] > 0 or not f.get("on_main_path", True))
+             and f["max_abs_err"] <= tol[e["name"]]
              for e in entries
              for f in [e] + [e[k] for k in _SUB_ENTRY.values() if k in e])
     ok = ok and all(f[k]["max_abs_err"] <= TOL["bfloat16"]
                     for f in subs for k in ("encoder", "cross") if k in f)
     return entries, ok
+
+
+def gated_entry(torch, args, launches, functions):
+    """The kernels line's entry of the RG-LRU's gated route at the served
+    decode step (4 slots, T = 1, bf16 inputs): its launches in the serve
+    (one a recurrent layer a decode step), the largest difference from the
+    gate chain run operator by operator, device ms of both, eager ms, the
+    bound, the ptxas registers and spills."""
+    from repro_torch.kernels import rglru_scan as rglru
+
+    got = rglru.rglru_gated_cuda(*args)
+    want = rglru.rglru_gated_plain(*args)
+    torch.cuda.synchronize()
+    B, T, W = args[0].shape
+    n, el = B * T * W, args[0].element_size()
+    # bytes: xc and the two products, the biases and lam read once, h0
+    # read, h and hT written; operations: 20 an element (2 bias adds, 2
+    # sigmoids of 3, log_a, a, ig * xc, 2 log_a, exp, 1 -, clamp, sqrt,
+    # beta * x, the step's multiply and add) and 6 a channel (softplus, -C)
+    b_ms, b_by = bound_ms(3 * n * el + 3 * W * el + 4 * B * W + 4 * n
+                          + 4 * B * W, 20 * n + 6 * W, FP32_OPS_PER_S)
+    return {
+        "name": "rglru_scan", "route": "cuda", "instance": "gated",
+        "source": "src/repro_torch/kernels/csrc/rglru.cu",
+        "wrapper": "src/repro_torch/kernels/rglru_scan.py",
+        "replaces": "src/repro/kernels/rglru_scan.py:63",
+        "fuses": "src/repro/models/blocks.py:478, 490-496 (XLA elementwise)",
+        "dtype": "bfloat16", "launches": launches, "shape": [B, T, W],
+        "max_abs_err": max(_err(g, w) for g, w in zip(got, want)),
+        "bit_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+        "ptxas": [ptxas_of(functions, "rglru_gated_kernelI13__nv_bfloat16E")],
+        "ms": device_ms(torch, lambda: rglru.rglru_gated_cuda(*args), 200),
+        "eager_ms": eager_ms(torch, lambda: rglru.rglru_gated_cuda(*args),
+                             200),
+        "plain_ms": device_ms(torch, lambda: rglru.rglru_gated_plain(*args),
+                              200),
+        "plain_eager_ms": eager_ms(
+            torch, lambda: rglru.rglru_gated_plain(*args), 200),
+        "library": None, "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_rate": "HBM 3.35 TB/s; FP32 67 TFLOP/s"}
 
 
 def recurrence_entries(torch, name, kernel, plain, chunked_plain, inputs,
@@ -4404,7 +4541,107 @@ def phase_dryrun_bounds(torch, served, trained):
                           "bytes a device")
 
 
+# --------------------------------------------------------------------------- #
+# the parts: phases 4-4e and 10 (a), a process each                           #
+# --------------------------------------------------------------------------- #
+def _part_slice(torch, np):
+    launches, stats, seed0 = phase_slice(torch, np)
+    return launches, stats, phase_slice_serve(torch, np, seed0)
+
+
+def _part_dryrun(torch, np):
+    from repro_torch.configs import ARCHS
+
+    return host_check(_dryrun_arch, ARCHS, dryrun_check)
+
+
+#: name -> fn(torch, np), in phase order; what it returns is picklable
+PARTS = {"slice": _part_slice, "slice mcb8": phase_slice_mcb8,
+         "slice session": phase_slice_session,
+         "slice scenarios grid": scenarios_grid,
+         "slice scenarios sessions": scenarios_sessions,
+         "dryrun": _part_dryrun}
+
+
+def run_parts():
+    """Starts ``chip_smoke.py --part <name>`` for every part of
+    :data:`PARTS`, all together, each with its lines and errors going to
+    files; waits for each in phase order and prints its lines and errors
+    once it has ended.  Returns each part's result by name, or raises
+    :class:`PhaseFailed` naming the parts that failed, once all have
+    ended.  No part outlives the call."""
+    import pickle
+    import tempfile
+
+    results, failed, procs = {}, [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for i, name in enumerate(PARTS):
+                base = os.path.join(tmp, str(i))
+                with open(base + ".out", "w") as out, \
+                        open(base + ".err", "w") as err:
+                    procs[name] = (base, subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--part", name, "--result", base + ".pkl",
+                         "--start", repr(_START)],
+                        stdout=out, stderr=err, cwd=ROOT))
+            for name, (base, proc) in procs.items():
+                rc = proc.wait()
+                sys.stdout.write(Path(base + ".out").read_text())
+                sys.stdout.flush()
+                sys.stderr.write(Path(base + ".err").read_text())
+                sys.stderr.flush()
+                if rc != 0:
+                    failed.append(f"{name} (exit code {rc})")
+                    continue
+                with open(base + ".pkl", "rb") as f:
+                    results[name] = pickle.load(f)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    if failed:
+        raise PhaseFailed(f"a part failed: {', '.join(failed)}")
+    return results
+
+
+def run_part(name, result_path, start):
+    """One part of :data:`PARTS` in this process, its phase lines timed
+    from the script's ``start``; its result pickled to ``result_path``.
+    Returns the exit code."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    global _START
+    _START = start
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = PARTS[name](torch, np)
+    except Exception as exc:  # noqa: BLE001 — reported, then a failing exit
+        traceback.print_exc()
+        emit({"phase": name, "ok": False,
+              "error": f"{type(exc).__name__}: {exc}"})
+        return 1
+    with open(result_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--part"]:
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--part", choices=list(PARTS), required=True)
+        ap.add_argument("--result", required=True)
+        ap.add_argument("--start", type=float, required=True)
+        args = ap.parse_args()
+        return run_part(args.part, args.result, args.start)
+
     import numpy as np
     import torch
 
@@ -4427,26 +4664,14 @@ def main() -> int:
         usage_paper = phase_kernels(torch, np)
         phase = "allocator"
         phase_allocator(torch, np)
-        # phases 4-4d on the card, then their host reference runs in one
-        # pool of processes and each phase's check (and line) in order
-        checks = HostChecks()
-        phase = "slice"
-        launches, stats, _ = phase_slice(torch, np, checks)
-        phase = "slice mcb8"
-        phase_slice_mcb8(torch, np, checks)
-        phase = "slice session"
-        session_launches = phase_slice_session(torch, np, checks)
+        phase = "parts"
+        parts = run_parts()
+        launches, stats, serve_launches = parts["slice"]
+        session_launches = parts["slice session"]
         phase = "slice scenarios"
-        scenario_launches = phase_slice_scenarios(torch, np, checks)
-        # phase 10 (a): the dry run of every cell, in the same host pool
-        from repro_torch.configs import ARCHS
-        defer(checks, "dryrun", _dryrun_arch, ARCHS, dryrun_check,
-              first=True)
-        phase = "slice host checks"
-        host = checks.run()
-        seed0, dry_records = host["slice"], host["dryrun"]
-        phase = "slice serve"
-        serve_launches = phase_slice_serve(torch, np, seed0)
+        scenario_launches = scenarios_check(
+            parts["slice scenarios grid"], parts["slice scenarios sessions"])
+        dry_records = parts["dryrun"]
         phase = "serve kernels"
         phase_serve_kernels(torch)
         for arch, spec in {**SERVE_ARCHS, **CHECK_ARCHS}.items():

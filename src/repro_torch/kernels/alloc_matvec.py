@@ -25,6 +25,10 @@ Both versions keep the contract:
 
 Padding columns contribute an exact ``+0.0``, which never changes a finite
 partial sum.
+
+:func:`alloc_matvec` and :func:`alloc_matvec_ref` take the JAX package's
+names: the first goes through ``kernels.ops`` (the tensor's device picks
+the version), the second is the plain version.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ import torch
 
 from . import cuda_lib
 
-__all__ = ["alloc_matvec_plain", "alloc_matvec_cuda"]
+__all__ = ["alloc_matvec", "alloc_matvec_ref", "alloc_matvec_plain",
+           "alloc_matvec_cuda"]
 
 
 def alloc_matvec_plain(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -81,3 +86,19 @@ def alloc_matvec_cuda(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"alloc_matvec kernel launch failed: CUDA error {rc}")
     return out
+
+
+def alloc_matvec(weight, x, *, interpret: bool = True) -> torch.Tensor:
+    """The reference's entry point: ``kernels.ops.alloc_matvec`` on
+    tensors (array-likes are taken as CPU tensors).  ``interpret`` only
+    chose how the reference ran its Pallas kernel off a TPU; here the
+    device of the data picks the version, so it is accepted and ignored."""
+    del interpret
+    from . import ops
+    return ops.alloc_matvec(torch.as_tensor(weight), torch.as_tensor(x))
+
+
+def alloc_matvec_ref(weight, x) -> torch.Tensor:
+    """The reference's oracle name for :func:`alloc_matvec_plain`
+    (array-likes are taken as CPU tensors)."""
+    return alloc_matvec_plain(torch.as_tensor(weight), torch.as_tensor(x))

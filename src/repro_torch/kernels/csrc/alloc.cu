@@ -410,41 +410,134 @@ int launch_solve(const unsigned char* present, const double* weight,
 // starting from 0.0 — bit for bit an in-order np.add.at.  An entry naming
 // no node in [0, N) (the sentinel N marks padding) is dropped.  Atomics
 // (index_add_ / scatter_add_ on the card) would add in a run-dependent
-// order, so none are used: one block takes one lane and 128 nodes, one
-// thread one node, and every thread walks the lane's list in order and
-// adds the entries that name its node.  The list is staged through shared
-// memory a tile at a time, where all threads read the same entry (a
-// broadcast).  Bound: bytes (the lists read once, the usage written once);
-// at the stretch passes' sizes the walk of K entries a thread is the
-// latency that counts.
-constexpr int kUsageThreads = 128;
-constexpr int kUsageTile = 2048;
+// order, so none are used.
+//
+// Design for the H100.  A CTA of kUsageWarps warps takes kUsageWarps nodes
+// of one lane, and the lane's list a tile of kUsageTile entries at a time
+// (each thread loads kUsageEach of them, coalesced and all in flight
+// together).  It sorts the tile's entries that name its nodes into one
+// bucket a node in shared memory, keeping list order: a row of 32 entries
+// belongs to one warp, and __match_any_sync gives each entry its rank among
+// the row's entries of its node and the row's count of each node; the warp
+// of each node turns its counts over the tile's rows into offsets with a
+// warp scan, and the buckets follow one another.  Then the warp of each node
+// adds its bucket in list order from 0.0, kUsageUnroll shared loads ahead of
+// their dependent adds (a +0.0 pad is exact: the sum is never -0.0).  At the
+// stretch passes' paper shape (16 lanes, 128 nodes, 4,096 entries) that is
+// 128 CTAs of 512 threads, about one on each of the 132 SMs, one tile
+// each, and about 32 dependent adds a node.  Each of a lane's CTAs reads the
+// lane's whole list, the later ones mostly out of the 50 MB L2.  Bound:
+// bytes (each list read once from device memory, the usage written once);
+// what is left is the launch, one round trip of the loads, five barriers
+// and the busiest node's chain of adds (K when a lane names one node only).
+constexpr int kUsageWarps = 16;                 // nodes a CTA, a warp each
+constexpr int kUsageThreads = 32 * kUsageWarps;
+constexpr int kUsageTile = 4096;                // entries a pass
+constexpr int kUsageRows = kUsageTile / 32;     // rows of 32, one warp's each
+constexpr int kUsageEach = kUsageTile / kUsageThreads;  // entries a thread
+constexpr int kUsageRowsPerLane = kUsageRows / 32;
+constexpr int kUsageUnroll = 8;                 // loads ahead of their adds
+static_assert(kUsageRows % 32 == 0 && kUsageWarps <= 32, "tile shape");
 
 __global__ void __launch_bounds__(kUsageThreads)
 node_usage_kernel(const long long* __restrict__ nodes,
                   const double* __restrict__ vals, double* __restrict__ out,
-                  int K, int N) {
-  __shared__ int s_node[kUsageTile];
-  __shared__ double s_val[kUsageTile];
-  const long long lane = blockIdx.x;
-  const int node = blockIdx.y * kUsageThreads + threadIdx.x;
+                  int K, int N, int groups) {
+  __shared__ double s_val[kUsageTile];             // the tile, by node
+  __shared__ int s_cnt[kUsageWarps][kUsageRows];   // a node's entries a row
+  __shared__ int s_tot[kUsageWarps];               // a node's entries
+  const long long lane = blockIdx.x / groups;
+  const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
+  const int first = static_cast<int>(blockIdx.x % groups) * kUsageWarps;
+  const int last = min(first + kUsageWarps, N);
+  const unsigned lower = (1u << lid) - 1u;
   const long long* lane_nodes = nodes + lane * K;
   const double* lane_vals = vals + lane * K;
   double acc = 0.0;
   for (int base = 0; base < K; base += kUsageTile) {
     const int n = K - base < kUsageTile ? K - base : kUsageTile;
+    int local[kUsageEach], rank[kUsageEach];
+    double v[kUsageEach];
+#pragma unroll
+    for (int r = 0; r < kUsageEach; ++r) {
+      const int i = r * kUsageThreads + threadIdx.x;  // row r * warps + warp
+      long long id = -1;
+      v[r] = 0.0;
+      if (i < n) {
+        id = __ldg(lane_nodes + base + i);
+        v[r] = __ldg(lane_vals + base + i);
+      }
+      local[r] = (id >= first && id < last) ? static_cast<int>(id - first)
+                                            : -1;
+    }
     __syncthreads();                    // the previous tile is consumed
-    for (int i = threadIdx.x; i < n; i += kUsageThreads) {
-      const long long v = __ldg(lane_nodes + base + i);
-      s_node[i] = (v >= 0 && v < N) ? static_cast<int>(v) : -1;
-      s_val[i] = __ldg(lane_vals + base + i);
+    for (int i = threadIdx.x; i < kUsageWarps * kUsageRows;
+         i += kUsageThreads) {
+      (&s_cnt[0][0])[i] = 0;
     }
     __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      if (s_node[i] == node) acc = __dadd_rn(acc, s_val[i]);
+#pragma unroll
+    for (int r = 0; r < kUsageEach; ++r) {
+      const unsigned peers = __match_any_sync(0xffffffffu, local[r]);
+      rank[r] = __popc(peers & lower);
+      if (local[r] >= 0 && rank[r] == 0) {
+        s_cnt[local[r]][r * kUsageWarps + warp] = __popc(peers);
+      }
+    }
+    __syncthreads();
+    {                                   // node `warp`: offsets of its rows
+      int c[kUsageRowsPerLane], own = 0;
+#pragma unroll
+      for (int q = 0; q < kUsageRowsPerLane; ++q) {
+        c[q] = s_cnt[warp][kUsageRowsPerLane * lid + q];
+        own += c[q];
+      }
+      int incl = own;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lid >= d) incl += y;
+      }
+      int run = incl - own;
+#pragma unroll
+      for (int q = 0; q < kUsageRowsPerLane; ++q) {
+        s_cnt[warp][kUsageRowsPerLane * lid + q] = run;
+        run += c[q];
+      }
+      if (lid == 31) s_tot[warp] = incl;
+    }
+    __syncthreads();
+    // the buckets one after another: lane j holds node j's start
+    const int tot = lid < kUsageWarps ? s_tot[lid] : 0;
+    int start = tot;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, start, d);
+      if (lid >= d) start += y;
+    }
+    start -= tot;
+#pragma unroll
+    for (int r = 0; r < kUsageEach; ++r) {
+      const int q = local[r] < 0 ? 0 : local[r];
+      const int at = __shfl_sync(0xffffffffu, start, q);
+      if (local[r] >= 0) {
+        s_val[at + s_cnt[q][r * kUsageWarps + warp] + rank[r]] = v[r];
+      }
+    }
+    const int mine = __shfl_sync(0xffffffffu, start, warp);
+    const int count = __shfl_sync(0xffffffffu, tot, warp);
+    __syncthreads();
+    for (int j = 0; j < count; j += kUsageUnroll) {
+      double x[kUsageUnroll];
+#pragma unroll
+      for (int u = 0; u < kUsageUnroll; ++u) {
+        x[u] = j + u < count ? s_val[mine + j + u] : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < kUsageUnroll; ++u) acc = __dadd_rn(acc, x[u]);
     }
   }
-  if (node < N) out[lane * N + node] = acc;
+  if (first + warp < last && lid == 0) out[lane * N + first + warp] = acc;
 }
 
 }  // namespace
@@ -477,13 +570,14 @@ int repro_maxmin_solve_f64(const unsigned char* present, const double* weight,
 
 int repro_node_usage_f64(const long long* nodes, const double* vals,
                          double* out, int B, int K, int N, void* stream) {
-  if (B > 0 && N > 0) {
-    const dim3 grid(static_cast<unsigned int>(B),
-                    static_cast<unsigned int>((N + kUsageThreads - 1)
-                                              / kUsageThreads));
-    node_usage_kernel<<<grid, kUsageThreads, 0,
+  if (B < 0 || K < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (N + kUsageWarps - 1) / kUsageWarps;
+  const long long blocks = static_cast<long long>(B) * groups;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > 0) {
+    node_usage_kernel<<<static_cast<unsigned int>(blocks), kUsageThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(nodes, vals, out,
-                                                             K, N);
+                                                             K, N, groups);
   }
   return static_cast<int>(cudaGetLastError());
 }

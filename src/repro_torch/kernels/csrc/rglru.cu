@@ -35,10 +35,31 @@
 // on the H100: bytes, 12 a step for each channel (a and b read, h written);
 // a and b are read twice, the second time mostly from the 50 MB L2.
 //
+// "gated" (repro_rglru_gated: a decode step, T < CHUNKED_MIN_T) fuses the
+// RG-LRU layer's gate chain (models/blocks.py rglru_apply, from the two
+// block-diagonal products before their biases to b_t) into the sequential
+// recurrence: rg = sigmoid(rg_pre + rg_b), ig = sigmoid(ig_pre + ig_b),
+// log_a = (-C * softplus(lam)) * rg, a = exp(log_a), b = sqrt(max(1 -
+// exp(2 log_a), 1e-12)) * (ig * xc), then h = a * h + b.  It replaces no
+// TPU kernel of its own: the JAX package computes the chain with XLA's
+// elementwise operations before its rglru_scan.  A thread per (batch,
+// channel), as the sequential route, with the channel's softplus and
+// biases in registers.  Each value is rounded to the type the chain gives
+// it (bf16 after the bias adds, the sigmoids, -C * softplus and ig * xc
+// when the weights are bf16; fp32 elsewhere), and every operation uses the
+// single-precision function PyTorch's CUDA operator uses (expf, log1pf,
+// IEEE division and square root, separately rounded multiplies and adds),
+// so it equals the chain run operator by operator on the card wherever
+// those agree.  What bounds it on the H100: at decode (4 x 2,560 channels,
+// 80 blocks) the launch's latency; it exists to take the chain's 18 host
+// operators a layer out of a step that the host bounds.  hT may be written
+// over h0 (a serving slot's state): a thread reads its h0 before it writes.
+//
 // Plain C interface for ctypes: launches on the given stream, allocates
 // nothing (the chunked route's scratch comes from the caller), does not
 // synchronise, returns the CUDA error of the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -187,6 +208,75 @@ rglru_chunk_out_kernel(const float* __restrict__ a,
   if (c == nc - 1) hT[static_cast<long long>(bi) * W + w] = hv;
 }
 
+// the gated route: one type for xc, the gate products, the biases and lam
+constexpr float kLruC = 8.0f;                           // the decay scale C
+constexpr float kBetaFloor = static_cast<float>(1e-12);  // clamp(min=1e-12)
+
+template <typename T>
+__device__ __forceinline__ float load_f(const T* p);
+template <>
+__device__ __forceinline__ float load_f<float>(const float* p) { return *p; }
+template <>
+__device__ __forceinline__ float load_f<__nv_bfloat16>(
+    const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// x rounded to T, as a PyTorch operator with T outputs rounds its fp32
+// result
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// torch.sigmoid: 1 / (1 + exp(-x)) in fp32
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rglru_gated_kernel(const T* __restrict__ xc, const T* __restrict__ rg_pre,
+                   const T* __restrict__ ig_pre, const T* __restrict__ rg_b,
+                   const T* __restrict__ ig_b, const T* __restrict__ lam,
+                   const float* h0, float* __restrict__ h, float* hT, int B,
+                   int T_, int W) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x
+                        + threadIdx.x;
+  if (idx >= static_cast<long long>(B) * W) return;
+  const long long bi = idx / W;
+  const long long w = idx - bi * W;
+  // -C * softplus(lam): torch.logaddexp(lam, 0) is max(lam, 0) +
+  // log1p(exp(-|lam - 0|)) in fp32, then a multiply by -C, each rounded to T
+  const float l = load_f(lam + w);
+  const float sp = round_to<T>(
+      __fadd_rn(fmaxf(l, 0.0f), log1pf(expf(-fabsf(l)))));
+  const float c = round_to<T>(__fmul_rn(-kLruC, sp));
+  const float rb = load_f(rg_b + w);
+  const float ib = load_f(ig_b + w);
+  float hv = h0[idx];
+  for (int t = 0; t < T_; ++t) {
+    const long long off = (bi * T_ + t) * W + w;
+    const float rg = round_to<T>(sigmoid_f(round_to<T>(
+        __fadd_rn(load_f(rg_pre + off), rb))));
+    const float ig = round_to<T>(sigmoid_f(round_to<T>(
+        __fadd_rn(load_f(ig_pre + off), ib))));
+    const float log_a = __fmul_rn(c, rg);
+    const float a = expf(log_a);
+    const float gx = round_to<T>(__fmul_rn(ig, load_f(xc + off)));
+    float u = __fsub_rn(1.0f, expf(__fmul_rn(2.0f, log_a)));
+    u = u < kBetaFloor ? kBetaFloor : u;            // a NaN stays NaN
+    const float bt = __fmul_rn(__fsqrt_rn(u), gx);
+    hv = __fadd_rn(__fmul_rn(a, hv), bt);
+    h[off] = hv;
+  }
+  hT[idx] = hv;
+}
+
 }  // namespace
 
 // a, b (B, T, W) fp32; h0 (B, W) fp32; h (B, T, W) and hT (B, W) fp32 out,
@@ -225,5 +315,35 @@ extern "C" int repro_rglru_scan_chunked_f32(const float* a, const float* b,
   if (err != cudaSuccess) return static_cast<int>(err);
   rglru_chunk_out_kernel<<<grid, kChunkThreads, 0, st>>>(a, b, h0, prod, hend,
                                                          h, hT, T, W, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gated route: xc, rg_pre, ig_pre (B, T, W) and rg_b, ig_b, lam (W,) of
+// one type (bf16 when bf16 != 0, else fp32); h0 (B, W) fp32; h (B, T, W) and
+// hT (B, W) fp32 out (hT may be h0), all contiguous.
+extern "C" int repro_rglru_gated(const void* xc, const void* rg_pre,
+                                 const void* ig_pre, const void* rg_b,
+                                 const void* ig_b, const void* lam,
+                                 const float* h0, float* h, float* hT, int B,
+                                 int T, int W, int bf16, void* stream) {
+  if (B < 0 || T < 0 || W < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(B) * W;
+  if (n == 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using T16 = __nv_bfloat16;
+    rglru_gated_kernel<T16><<<blocks, kThreads, 0, st>>>(
+        static_cast<const T16*>(xc), static_cast<const T16*>(rg_pre),
+        static_cast<const T16*>(ig_pre), static_cast<const T16*>(rg_b),
+        static_cast<const T16*>(ig_b), static_cast<const T16*>(lam), h0, h,
+        hT, B, T, W);
+  } else {
+    rglru_gated_kernel<float><<<blocks, kThreads, 0, st>>>(
+        static_cast<const float*>(xc), static_cast<const float*>(rg_pre),
+        static_cast<const float*>(ig_pre), static_cast<const float*>(rg_b),
+        static_cast<const float*>(ig_b), static_cast<const float*>(lam), h0,
+        h, hT, B, T, W);
+  }
   return static_cast<int>(cudaGetLastError());
 }

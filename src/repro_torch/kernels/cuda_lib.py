@@ -54,6 +54,8 @@ LIBRARIES = {
         "repro_rglru_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
         "repro_rglru_scan_chunked_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _P],
+        "repro_rglru_gated": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _P],
     }),
     "wkv6": (_CSRC / "wkv6.cu", _COMMON, {
         "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -39,6 +39,10 @@ their design does about it:
 Row statistics and accumulators are fp32, the output has q's type; the
 kernels agree with the plain versions within the reference's kernel
 tolerances (fp32 2e-5, bf16 2e-2).
+
+:func:`flash_attention` and :func:`flash_decode` take the JAX package's
+names and keywords and go through ``kernels.ops``, so the tensor's device
+picks the version.
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ import torch
 from ..models.layers import chunked_attention, decode_attention
 from . import cuda_lib
 
-__all__ = ["flash_attention_plain", "flash_attention_cuda",
+__all__ = ["flash_attention", "flash_decode", "flash_attention_plain",
+           "flash_attention_cuda",
            "flash_decode_plain", "flash_decode_cuda", "attention_route",
            "decode_route", "attention_instance", "decode_instance",
            "MAX_HEAD_DIM"]
@@ -208,3 +213,27 @@ def flash_decode_cuda(q, k_cache, v_cache, cur_len, *,
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{rc}")
     return out
+
+
+# The reference's ``block_q``, ``block_k`` and ``interpret`` only tiled its
+# Pallas kernels on the TPU (or ran them interpreted off it); the Hopper
+# kernels pick their own tiles, and the device of the data picks the
+# version, so both entries accept them and ignore them.
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, scale: Optional[float] = None,
+                    block_q: int = 256, block_k: int = 512,
+                    interpret: bool = True):
+    """The reference's entry point: ``kernels.ops.flash_attention``."""
+    del block_q, block_k, interpret
+    from . import ops
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, scale=scale)
+
+
+def flash_decode(q, k_cache, v_cache, cur_len, *,
+                 scale: Optional[float] = None, block_k: int = 512,
+                 interpret: bool = True):
+    """The reference's entry point: ``kernels.ops.flash_decode``."""
+    del block_k, interpret
+    from . import ops
+    return ops.flash_decode(q, k_cache, v_cache, cur_len, scale=scale)

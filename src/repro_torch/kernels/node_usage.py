@@ -15,8 +15,11 @@ package's ``segment_sum`` drops them.
   JAX package's ``core/alloc_jax.py`` (``node_usage`` /
   ``node_usage_batch``).  ``index_add_`` and ``scatter_add_`` add with
   atomics on the card, in an order that changes from run to run, so the
-  kernel has one thread a node walk the lane's list in order instead.
-  It is bound by bytes, and at the passes' sizes by the walk's latency.
+  kernel sorts each CTA's share of a lane's list (16 nodes) into one
+  bucket a node in shared memory, keeping list order, and one warp a
+  node adds its bucket in order.  It is bound by bytes; at the passes'
+  sizes what is left is the launch, the loads' round trip and the busiest
+  node's chain of adds.
 """
 from __future__ import annotations
 

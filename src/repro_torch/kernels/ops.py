@@ -12,14 +12,15 @@ and ``routes`` the launches of an entry point with more than one instance
 by the instance taken (for attention, the kernel instance: ``"wgmma<2>"``,
 ``"mma<1>"``, ...); :func:`reset_launches` zeroes both.
 
-Gradients.  ``flash_attention``, ``wkv6`` and ``linear_recurrence`` are
-differentiable, as the reference's ``custom_vjp`` wraps them
-(``src/repro/kernels/ops.py``): the forward is the kernel, the backward is
-autograd of the oracle (:mod:`repro_torch.kernels.ref`) recomputed from the
-saved inputs.  On a CUDA tensor with grad enabled the call is a
-``torch.autograd.Function`` whose forward launches the Hopper kernel
-(counted as every launch) and whose backward differentiates the plain
-version on the card; on the CPU autograd runs through the plain version
+Gradients.  ``flash_attention``, ``wkv6``, ``linear_recurrence`` and
+``rglru_gated`` are differentiable, as the reference's ``custom_vjp``
+wraps the first three (``src/repro/kernels/ops.py``): the forward is the
+kernel, the backward is autograd of the oracle
+(:mod:`repro_torch.kernels.ref`, or the gate chain's plain version)
+recomputed from the saved inputs.  On a CUDA tensor with grad enabled the
+call is a ``torch.autograd.Function`` whose forward launches the Hopper
+kernel (counted as every launch) and whose backward differentiates the
+plain version on the card; on the CPU autograd runs through the plain version
 itself, as the reference's ``"ref"`` backend.  The JAX package has no
 backward Pallas kernel, so none is owed here; hand-written backward
 kernels are later performance work (``ROADMAP.md``).  ``flash_decode``
@@ -45,12 +46,14 @@ from .flash_attention import (attention_instance, decode_instance,
 from . import meta_cost
 from .maxmin_solve import maxmin_solve_cuda, maxmin_solve_plain, solve_route
 from .node_usage import node_usage_cuda, node_usage_plain
-from .rglru_scan import linear_recurrence_plain, rglru_route, rglru_scan_cuda
+from .rglru_scan import (CHUNKED_MIN_T, linear_recurrence_plain,
+                         rglru_gated_cuda, rglru_gated_plain, rglru_gates,
+                         rglru_route, rglru_scan_cuda)
 from .rwkv6_scan import wkv6_cuda, wkv6_plain, wkv6_route
 
 __all__ = ["alloc_matvec", "maxmin_solve", "node_usage", "flash_attention",
-           "flash_decode", "linear_recurrence", "wkv6", "launches", "routes",
-           "reset_launches"]
+           "flash_decode", "linear_recurrence", "rglru_gated", "wkv6",
+           "launches", "routes", "reset_launches"]
 
 #: kernel launches per entry point since the last reset
 launches: Dict[str, int] = {"alloc_matvec": 0, "maxmin_solve": 0,
@@ -238,6 +241,40 @@ def linear_recurrence(a, b, h0) -> Tuple[torch.Tensor, torch.Tensor]:
                                        a, b, h0)
         return kernel(a, b, h0)
     return linear_recurrence_plain(a, b, h0)
+
+
+def rglru_gated(xc, rg_pre, ig_pre, rg_b, ig_b, lam, h0, *,
+                state_out: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU layer's gates and recurrence, ``(h, hT)`` (see
+    ``kernels/rglru_scan.py``); hT goes to ``state_out`` when given (it may
+    be ``h0``).  On the card a call of fewer than ``CHUNKED_MIN_T`` steps
+    (a decode step) is one launch of the ``"gated"`` route, counted under
+    ``rglru_scan``.  Elsewhere — a prefill on the card, the CPU, ``meta``
+    — the gate chain runs as PyTorch operators and then
+    :func:`linear_recurrence` (the chunked route on the card, the plain
+    loop on the CPU, its cost on ``meta``).  Differentiable (with
+    ``state_out`` None), its backward that of the plain version."""
+    args = (xc, rg_pre, ig_pre, rg_b, ig_b, lam, h0)
+    if (not _on_meta(xc) and _on_cuda(xc)
+            and xc.shape[1] < CHUNKED_MIN_T):
+        def kernel(*a):
+            out = rglru_gated_cuda(*a, state_out=state_out)
+            launches["rglru_scan"] += 1
+            routes["rglru_scan"]["gated"] += 1
+            return out
+        if _differentiable(*args):
+            if state_out is not None:
+                raise ValueError("a differentiable rglru_gated call takes "
+                                 "no state_out")
+            return _KernelOracle.apply(kernel, rglru_gated_plain, *args)
+        return kernel(*(t.contiguous() for t in args))
+    a, bt = rglru_gates(xc, rg_pre, ig_pre, rg_b, ig_b, lam)
+    h, hT = linear_recurrence(a, bt, h0)
+    if state_out is None:
+        return h, hT
+    state_out.copy_(hT)
+    return h, state_out
 
 
 def wkv6(r, k, v, w, u, s0, *, state_out: Optional[torch.Tensor] = None

@@ -30,6 +30,30 @@ Elementwise over the LRU width, from a carry ``h0``: a, b (B, T, W), h0
     :func:`linear_recurrence_chunked_plain` bit for bit; against the
     sequential order it is held to the reference's tolerance for its own
     log-depth scan (atol 1e-5, rtol 1e-4), not bit for bit.
+
+The RG-LRU layer's gates, fused with the recurrence (the decode step of
+``models/blocks.py`` ``rglru_apply``), from the conv output ``xc`` and the
+two block-diagonal products before their biases (all (B, T, W), the
+weights' type), the biases and ``lam`` (W,), and the carry h0:
+
+* :func:`rglru_gates` — the layer's chain from those inputs to ``(a,
+  bt)``, the reference's operations in its order (sigmoids, softplus,
+  ``log_a``, ``beta``), each rounded to the type the chain gives it;
+  :func:`rglru_gated_plain` is it followed by
+  :func:`linear_recurrence_plain`;
+* :func:`rglru_gated_cuda` — route ``"gated"`` of ``csrc/rglru.cu``: one
+  launch computes the chain and the recurrence, a thread per (batch,
+  channel) with a loop over T, and writes hT where it is told (a serving
+  slot's state, in place).  It uses the single-precision functions and
+  roundings of PyTorch's CUDA operators, so it is held to
+  :func:`rglru_gated_plain` on the card bit for bit where they agree, and
+  within the recurrence's tolerance in any case.  A decode step is bound
+  by launch latency on the H100; the route takes the chain's 18 host
+  operators a layer, and the copy of hT into the slot, out of a step that
+  the host bounds.
+
+:func:`rglru_scan` takes the JAX package's name and keywords and goes
+through ``kernels.ops``.
 """
 from __future__ import annotations
 
@@ -39,12 +63,16 @@ import torch
 
 from . import cuda_lib
 
-__all__ = ["linear_recurrence_plain", "linear_recurrence_chunked_plain",
-           "rglru_scan_cuda", "rglru_route", "CHUNK", "CHUNKED_MIN_T"]
+__all__ = ["rglru_scan", "linear_recurrence_plain",
+           "linear_recurrence_chunked_plain", "rglru_scan_cuda",
+           "rglru_route", "rglru_gates", "rglru_gated_plain",
+           "rglru_gated_cuda", "CHUNK", "CHUNKED_MIN_T"]
 
 CHUNK = 32           # steps of a chunk on the chunked route
 CHUNKED_MIN_T = 128  # shortest T sent to the chunked route (measured, PERF.md)
 ROUTES = ("sequential", "chunked")
+_LRU_C = 8.0         # the RG-LRU's decay scale (the reference's _LRU_C)
+_GATED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def rglru_route(B: int, T: int, W: int) -> str:
@@ -150,4 +178,94 @@ def rglru_scan_cuda(a, b, h0, *, route: Optional[str] = None
     if rc != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed ({route}): CUDA "
                            f"error {rc}")
+    return h, hT
+
+
+def rglru_scan(a, b, h0, *, block_t: int = 128, block_w: int = 512,
+               interpret: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's entry point: ``kernels.ops.linear_recurrence``.
+    ``block_t`` and ``block_w`` only tiled the reference's Pallas kernel
+    and ``interpret`` ran it off a TPU; the kernels here pick their own
+    route from the shape and the device of the data picks the version, so
+    all three are accepted and ignored."""
+    del block_t, block_w, interpret
+    from . import ops
+    return ops.linear_recurrence(a, b, h0)
+
+
+def _softplus(x):
+    # jax.nn.softplus is logaddexp(x, 0) for every input; F.softplus
+    # switches to x above a threshold
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def rglru_gates(xc, rg_pre, ig_pre, rg_b, ig_b, lam
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU's gate chain, ``(a, bt)`` in fp32: the reference's
+    ``rglru_apply`` from its two block-diagonal products (their bias adds,
+    ``src/repro/models/blocks.py:478``) to ``bt`` (``:490-496``)."""
+    rg = torch.sigmoid(rg_pre + rg_b)
+    ig = torch.sigmoid(ig_pre + ig_b)
+    log_a = -_LRU_C * _softplus(lam) * rg.float()
+    a = torch.exp(log_a)
+    gated_x = (ig * xc).float()
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    bt = beta * gated_x
+    return a, bt
+
+
+def rglru_gated_plain(xc, rg_pre, ig_pre, rg_b, ig_b, lam, h0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rglru_gates` then :func:`linear_recurrence_plain`."""
+    a, bt = rglru_gates(xc, rg_pre, ig_pre, rg_b, ig_b, lam)
+    return linear_recurrence_plain(a, bt, h0)
+
+
+def rglru_gated_cuda(xc, rg_pre, ig_pre, rg_b, ig_b, lam, h0, *,
+                     state_out: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route ``"gated"``: the same function as :func:`rglru_gated_plain` in
+    one launch.  ``xc``, ``rg_pre``, ``ig_pre`` (B, T, W) and ``rg_b``,
+    ``ig_b``, ``lam`` (W,) are one type, fp32 or bf16; h0 (B, W) fp32.
+    hT goes to ``state_out`` when given (fp32 (B, W), contiguous; it may
+    be h0) and is returned as it.  Launches on the current stream; raises
+    on a refused launch."""
+    xs = (xc, rg_pre, ig_pre)
+    ws = (rg_b, ig_b, lam)
+    out = [state_out] if state_out is not None else []
+    tensors = list(xs + ws) + [h0] + out
+    if not all(t.is_cuda and t.device == xc.device for t in tensors):
+        raise ValueError("rglru_gated_cuda needs every tensor on one CUDA "
+                         "device")
+    if xc.dtype not in _GATED_DTYPES or any(t.dtype != xc.dtype
+                                            for t in xs + ws):
+        raise TypeError("rglru_gated_cuda takes xc, the gate products, the "
+                        "biases and lam of one type, fp32 or bf16, got "
+                        f"{[t.dtype for t in xs + ws]}")
+    if any(t.dtype != torch.float32 for t in [h0] + out):
+        raise TypeError("rglru_gated_cuda takes fp32 h0 and state_out")
+    if xc.dim() != 3:
+        raise ValueError(f"xc must be (B, T, W), got {tuple(xc.shape)}")
+    B, T, W = xc.shape
+    if (any(t.shape != xc.shape for t in xs)
+            or any(t.shape != (W,) for t in ws)
+            or any(t.shape != (B, W) for t in [h0] + out)):
+        raise ValueError("shapes " + ", ".join(
+            str(tuple(t.shape)) for t in tensors) + " are not (B, T, W) x3, "
+            "(W,) x3 and (B, W)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rglru_gated_cuda takes contiguous tensors")
+    if xc.numel() >= 2**62 or max(xc.shape) >= 2**31:
+        raise ValueError(f"shape {tuple(xc.shape)} is too large")
+    h = torch.empty((B, T, W), dtype=torch.float32, device=xc.device)
+    hT = state_out if state_out is not None else torch.empty(
+        (B, W), dtype=torch.float32, device=xc.device)
+    lib = cuda_lib.load_library("rglru")
+    stream = torch.cuda.current_stream(xc.device).cuda_stream
+    rc = lib.repro_rglru_gated(
+        *(t.data_ptr() for t in xs + ws), h0.data_ptr(), h.data_ptr(),
+        hT.data_ptr(), B, T, W, int(xc.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru_gated kernel launch failed: CUDA error "
+                           f"{rc}")
     return h, hT

@@ -59,8 +59,9 @@ import torch
 
 from . import cuda_lib
 
-__all__ = ["wkv6_plain", "wkv6_chunked_plain", "wkv6_cuda", "wkv6_route",
-           "MAX_DIM", "CHUNK", "SUB", "CHUNKED_MAX_DIM", "CHUNKED_MIN_T"]
+__all__ = ["wkv6", "wkv6_plain", "wkv6_chunked_plain", "wkv6_cuda",
+           "wkv6_route", "MAX_DIM", "CHUNK", "SUB", "CHUNKED_MAX_DIM",
+           "CHUNKED_MIN_T"]
 
 MAX_DIM = 128        # largest dk and dv the kernels take
 # the chunked route's tiles, as csrc/wkv6.cu fixes them (kC, kL, kD): the
@@ -274,3 +275,13 @@ def wkv6_cuda(r, k, v, w, u, s0, *, state_out: Optional[torch.Tensor] = None,
         raise RuntimeError(f"wkv6 kernel launch failed ({route}): CUDA "
                            f"error {rc}")
     return y, sT
+
+
+def wkv6(r, k, v, w, u, s0, *, block_t: int = 32, interpret: bool = True):
+    """The reference's entry point: :func:`repro_torch.kernels.ops.wkv6`.
+    ``block_t`` only tiled the reference's Pallas kernel over time and
+    ``interpret`` ran it off a TPU; the device of the data picks the
+    version here, so both are accepted and ignored."""
+    del block_t, interpret
+    from . import ops
+    return ops.wkv6(r, k, v, w, u, s0)

@@ -100,15 +100,16 @@ def _shape(shape) -> ShapeSpec:
     return SHAPES[shape] if isinstance(shape, str) else shape
 
 
-def input_specs_for(cfg: ModelConfig, shape, *, dtype=torch.bfloat16,
+def input_specs_for(cfg: ModelConfig, shape_name, *, dtype=torch.bfloat16,
                     factored: Optional[bool] = None, kv_int8: bool = False):
-    """As :func:`input_specs`, for a config and a shape (a ``SHAPES`` name
-    or a ``ShapeSpec``): the train state (training layout) and the batch;
+    """As :func:`input_specs`, for a config and a shape (``shape_name``, as
+    the reference names it: a ``SHAPES`` name, or here also a
+    ``ShapeSpec``): the train state (training layout) and the batch;
     or the parameters, the batch and the caches (reference layout,
     ``S_enc`` 1,500 for an encoder-decoder, int8 attention KV under
     ``kv_int8``) of a prefill; or the parameters, one token a request,
     the caches and a 0-d position of a decode."""
-    shape = _shape(shape)
+    shape = _shape(shape_name)
     B, T = shape.global_batch, shape.seq_len
     cache_dtype = torch.int8 if kv_int8 else dtype
     if shape.kind == "train":

@@ -121,7 +121,7 @@ def _kv_dequant(q, scale, dtype=torch.bfloat16):
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def _qkv(cfg: ModelConfig, p, x, positions):
+def _qkv(cfg: ModelConfig, p, x, positions, *, use_rope: bool = True):
     B, T, D = x.shape
     q = (x @ p["wq"].reshape(D, -1)).reshape(B, T, cfg.n_heads, -1)
     k = (x @ p["wk"].reshape(D, -1)).reshape(B, T, cfg.n_kv_heads, -1)
@@ -129,12 +129,14 @@ def _qkv(cfg: ModelConfig, p, x, positions):
     if cfg.qk_norm and "qn" in p:
         q = norm(q, p["qn"], "rmsnorm", cfg.norm_eps)
         k = norm(k, p["kn"], "rmsnorm", cfg.norm_eps)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def attn_apply(cfg: ModelConfig, p, x, mode: str, cache, pos, *,
-               window: int = 0, causal: bool = True):
+               window: int = 0, causal: bool = True, use_rope: bool = True):
     h = norm(x, p["ln"], cfg.norm_kind, cfg.norm_eps)
     B, T, D = h.shape
     wo = p["wo"].reshape(-1, D)
@@ -142,7 +144,7 @@ def attn_apply(cfg: ModelConfig, p, x, mode: str, cache, pos, *,
         pos_t = _decode_pos(pos, B, x.device)
         batched = pos_t.dim() == 1         # per-request positions (serving)
         positions = pos_t[:, None] if batched else pos_t.reshape(1)
-        q, k, v = _qkv(cfg, p, h, positions)
+        q, k, v = _qkv(cfg, p, h, positions, use_rope=use_rope)
         quant = "ks" in cache              # int8 KV layout
         S = cache["k"].shape[1]
         # the ring slot (window > 0) or the last slot: as the reference
@@ -169,7 +171,7 @@ def attn_apply(cfg: ModelConfig, p, x, mode: str, cache, pos, *,
         return x + y, cache
 
     positions = pos + torch.arange(T, device=x.device)
-    q, k, v = _qkv(cfg, p, h, positions)
+    q, k, v = _qkv(cfg, p, h, positions, use_rope=use_rope)
     o = kops.flash_attention(q, k, v, causal=causal, window=window,
                              q_offset=0)
     y = o.reshape(B, T, -1) @ wo
@@ -478,7 +480,6 @@ def rwkv6_apply(cfg: ModelConfig, p, x, mode: str, cache, pos):
 # RG-LRU (Griffin / RecurrentGemma recurrent block)                            #
 # =========================================================================== #
 _CONV_W = 4
-_LRU_C = 8.0
 
 
 def rglru_init(cfg: ModelConfig, gen, dtype, device):
@@ -522,17 +523,12 @@ def _causal_conv(x, w, b, x_prev):
                    for i in range(_CONV_W))
 
 
-def _block_diag(x, w, b, H):
-    """x: (B,T,W) -> block-diagonal linear with H blocks."""
+def _block_diag(x, w, H):
+    """x: (B,T,W) -> block-diagonal linear with H blocks, before its bias
+    (the reference's ``_block_diag`` adds it; here the gates add it)."""
     B, T, W = x.shape
     xh = x.reshape(B, T, H, W // H)
-    return torch.einsum("bthi,hij->bthj", xh, w).reshape(B, T, W) + b
-
-
-def _softplus(x):
-    # jax.nn.softplus is logaddexp(x, 0) for every input; F.softplus
-    # switches to x above a threshold
-    return torch.logaddexp(x, torch.zeros_like(x))
+    return torch.einsum("bthi,hij->bthj", xh, w).reshape(B, T, W)
 
 
 def rglru_apply(cfg: ModelConfig, p, x, mode: str, cache, pos):
@@ -544,22 +540,19 @@ def rglru_apply(cfg: ModelConfig, p, x, mode: str, cache, pos):
     conv_prev = (cache["conv"].to(xb.dtype) if cache is not None
                  else _zeros((B, _CONV_W - 1, W), xb.dtype, x.device))
     xc = _causal_conv(xb, p["conv_w"], p["conv_b"], conv_prev)
-    rg = torch.sigmoid(_block_diag(xc, p["rg_a"], p["rg_a_b"], H))
-    ig = torch.sigmoid(_block_diag(xc, p["rg_x"], p["rg_x_b"], H))
-    log_a = -_LRU_C * _softplus(p["lam"]) * rg.float()
-    a = torch.exp(log_a)
-    gated_x = (ig * xc).float()
-    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    bt = beta * gated_x
     h0 = (cache["h"] if cache is not None
           else _zeros((B, W), torch.float32, x.device))
-
-    h_seq, hT = kops.linear_recurrence(a, bt, h0)            # (B,T,W) fp32
+    keep = cache is not None and mode in ("prefill", "decode")
+    # the gates (sigmoids, softplus, log_a, beta) and the recurrence; hT
+    # straight into the slot's state
+    h_seq, _ = kops.rglru_gated(
+        xc, _block_diag(xc, p["rg_a"], H), _block_diag(xc, p["rg_x"], H),
+        p["rg_a_b"], p["rg_x_b"], p["lam"], h0,
+        state_out=cache["h"] if keep else None)              # (B,T,W) fp32
     y = (gb * h_seq.to(gb.dtype)) @ p["w_out"]
-    if cache is not None and mode in ("prefill", "decode"):
+    if keep:
         tail = torch.cat([conv_prev, xb], dim=1)[:, -(_CONV_W - 1):]
         cache["conv"].copy_(tail)
-        cache["h"].copy_(hT)
     return x + y, cache
 
 

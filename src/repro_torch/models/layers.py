@@ -18,7 +18,7 @@ import torch.nn.functional as F
 __all__ = [
     "uinit", "rmsnorm", "layernorm", "norm", "rope", "rope_angles",
     "sinusoid_pos", "mlp_init", "mlp_axes", "mlp_apply", "chunked_attention",
-    "decode_attention",
+    "decode_attention", "split_tree",
 ]
 
 _NEG_INF = -1e30
@@ -40,6 +40,16 @@ def uinit(gen: torch.Generator, shape, scale: Optional[float], dtype,
     t = torch.empty(shape, dtype=torch.float32, device=on)
     t.uniform_(-scale, scale, generator=gen)
     return t.to(device=device, dtype=dtype)
+
+
+def split_tree(gen: torch.Generator, n: int) -> list:
+    """``n`` generators on ``gen``'s device, each seeded from a draw of
+    ``gen`` (which advances): the counterpart of the reference's
+    ``jax.random.split`` of a key into ``n``.  It cannot give
+    ``jax.random``'s bits."""
+    seeds = torch.randint(0, 2**63 - 1, (n,), generator=gen,
+                          device=gen.device).tolist()
+    return [torch.Generator(device=gen.device).manual_seed(s) for s in seeds]
 
 
 # --------------------------------------------------------------------------- #
@@ -200,7 +210,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, cur_len, *,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, ring: bool = False):
     """Single-token attention against a (possibly ring-buffered) KV cache.
 
     q: (B, H, hd); k_cache/v_cache: (B, S, Hkv, hd), of q's dtype or not
@@ -208,7 +218,11 @@ def decode_attention(q, k_cache, v_cache, cur_len, *,
     an int, a 0-d tensor or (B,) int — tokens already in context (the new
     token's position, per request when (B,)).  Every slot
     < min(cur_len + 1, S) is valid (the new token was written first).
+    ``ring`` is the reference's keyword, which its body never reads: a ring
+    and a flat cache give the same valid slots, so it is accepted and
+    ignored.
     """
+    del ring
     B, S, Hkv, hd = k_cache.shape
     H = q.shape[1]
     G = H // Hkv

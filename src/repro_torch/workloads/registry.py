@@ -51,7 +51,7 @@ __all__ = [
     "WorkloadSpec", "WorkloadKind", "register_workload", "list_workloads",
     "workload_kind", "parse_workload", "make_trace", "make_trace_ir",
     "stream_trace", "trace_cache_info", "trace_cache_clear",
-    "DEFAULT_STREAM_WINDOW_S",
+    "DEFAULT_STREAM_WINDOW_S", "WORKLOAD_KINDS",
 ]
 
 _SCALARS = (str, int, float, bool)

@@ -5,14 +5,16 @@ Run as a process, never imported by a test process: importing
 ``repro.launch.dryrun`` sets ``XLA_FLAGS`` for 512 devices, and this
 script sets 8 before JAX starts.
 
-    python tests/dryrun_reference.py OUT_DIR real|stub:arch:shape ...
+    python tests/dryrun_reference.py OUT_DIR real|stub|specs:arch:shape ...
 
 For each cell it writes ``OUT_DIR/<mode>/<arch>__<shape>__single.json`` (the
 reference's record), ``.hlo`` (the compiled full-depth program's text)
 and ``.specs.json`` (the flattened argument indices ``jax.jit`` kept, the
 model FLOPs, the preset, the batch shapes and the input specs' shapes),
 from ``repro.launch.dryrun.run_cell`` with two changes, and a third
-under ``stub``:
+under ``stub``; under ``specs`` it writes only
+``OUT_DIR/specs/<arch>__<shape>.specs.json``, the shapes and dtypes of
+``input_specs_for(cfg, shape_name=shape)``, and runs no cell:
 
 * the reduced config (``repro.configs.get_reduced``) in place of the
   full one;
@@ -87,7 +89,7 @@ _KERNELS = [(mod, name, getattr(mod, name)) for mod, name, _ in _STUBS]
 
 def _use(mode):
     if mode not in ("real", "stub"):
-        raise SystemExit(f"mode {mode!r}: 'real' or 'stub'")
+        raise SystemExit(f"mode {mode!r}: 'real', 'stub' or 'specs'")
     for mod, name, fn in (_STUBS if mode == "stub" else _KERNELS):
         setattr(mod, name, fn)
 
@@ -109,6 +111,10 @@ def main(out_root, jobs):
     jax.stages.Lowered.compile = keep_text
     for job in jobs:
         mode, arch, shape = job.split(":")
+        if mode == "specs":
+            _write_input_specs(out_root, arch, shape)
+            print(f"{job} ok", flush=True)
+            continue
         _use(mode)
         out_dir = os.path.join(out_root, mode)
         first.clear()
@@ -133,6 +139,17 @@ def main(out_root, jobs):
                 "input_specs": [[list(x.shape), str(x.dtype)]
                                 for x in jax.tree.leaves(specs)]}, f)
         print(f"{job} ok", flush=True)
+
+
+def _write_input_specs(out_root, arch, shape):
+    cfg = get_reduced(arch)
+    specs = dr.input_specs_for(cfg, shape_name=shape, dtype=jnp.bfloat16,
+                               factored=dr.auto_factored(cfg))
+    out_dir = os.path.join(out_root, "specs")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{arch}__{shape}.specs.json"), "w") as f:
+        json.dump({"input_specs": [[list(x.shape), str(x.dtype)]
+                                   for x in jax.tree.leaves(specs)]}, f)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,10 @@ fill its temporaries).  The port traces the same cells on ``meta``.
 Exact: argument, output and alias bytes to the byte (the differences are
 named below with their reasons), ``parse_collectives`` on the reference's
 HLO, ``model_flops``, ``preset``, ``batch_shapes``, ``input_specs_for``'s
-shapes, and the extrapolated counts against a full-depth trace.
+shapes (called as the reference calls it, ``shape_name=``, for every name
+in ``SHAPES``: the reference's specs alone, from a ``specs`` job, for the
+shapes no cell runs), and the extrapolated counts against a full-depth
+trace.
 Measured: FLOPs outside the kernels within 25 % of the reference's
 (train and prefill), temporaries and collective payload within the worst
 ratio measured, rounded up.
@@ -78,7 +81,9 @@ def _run_reference(out, jobs, procs=4):
 def reference(tmp_path_factory):
     root = tmp_path_factory.mktemp("dryrun_reference")
     _run_reference(root, [("real",) + c for c in CELLS]
-                   + [("stub",) + c for c in FORWARD])
+                   + [("stub",) + c for c in FORWARD]
+                   + [("specs", a, s) for a in ARCHS for s in SHAPES
+                      if s not in SHAPE_NAMES])
 
     def load(mode, a, s, suffix=".json"):
         with open(root / mode / f"{a}__{s}__single{suffix}") as f:
@@ -90,6 +95,11 @@ def reference(tmp_path_factory):
             "specs": load("real", a, s, ".specs.json"),
             "hlo": (root / "real" / f"{a}__{s}__single.hlo").read_text(),
             "stub": load("stub", a, s) if (a, s) in FORWARD else None}
+    for a in ARCHS:
+        for s in SHAPES:
+            if s not in SHAPE_NAMES:
+                with open(root / "specs" / f"{a}__{s}.specs.json") as f:
+                    out[(a, s)] = {"specs": json.load(f)}
     return out
 
 
@@ -206,15 +216,32 @@ def test_model_flops_preset_and_input_shapes_equal_the_reference(
             for k, v in bs.items()} == specs["batch_shapes"]
     ins = dr.input_specs_for(cfg, shape, dtype=torch.bfloat16,
                              factored=dr.auto_factored(cfg))
+    _assert_input_specs(cfg, ins, specs["input_specs"])
+
+
+def _assert_input_specs(cfg, ins, want):
+    """The port's input specs on ``meta``, leaf for leaf the reference's
+    shapes and dtypes, but the cross cache's heads (H against Hkv)."""
     assert all(t.device.type == "meta" for t in leaves(ins))
     got = [[list(t.shape), str(t.dtype).split(".")[-1]] for t in leaves(ins)]
-    want = specs["input_specs"]
     assert len(got) == len(want)
     for g, w in zip(got, want):
         if g != w:      # the cross cache's heads, as above: H against Hkv
             assert cfg.is_encdec and g[0][2] == 1500 and g[1] == w[1]
             assert g[0][:3] + [cfg.n_heads] + g[0][4:] == w[0]
             assert g[0][3] == cfg.n_kv_heads
+
+
+@pytest.mark.parametrize("cell", [(a, s) for a in ARCHS for s in SHAPES],
+                         ids=_cell_id)
+def test_input_specs_for_takes_the_reference_keyword(cell, reference):
+    """``input_specs_for(cfg, shape_name=...)``, as the reference names the
+    parameter, for every name in ``SHAPES``."""
+    arch, shape = cell
+    cfg = get_reduced(arch)
+    ins = dr.input_specs_for(cfg, shape_name=shape, dtype=torch.bfloat16,
+                             factored=dr.auto_factored(cfg))
+    _assert_input_specs(cfg, ins, reference[cell]["specs"]["input_specs"])
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=_cell_id)

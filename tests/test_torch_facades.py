@@ -8,12 +8,23 @@ One case per (package, name): the ``__all__`` of ``repro.core``,
 still to come, whose cases assert that they are absent; it is empty since
 the training path brought ``repro.kernels.ref``.  Where the reference
 keeps an order, the port's ``__all__`` lists the reference's names in it.
+
+At module level, one case per (module, name) of the reference's public
+names of ``kernels.alloc_matvec``, ``kernels.flash_attention``,
+``kernels.rglru_scan``, ``kernels.rwkv6_scan``, ``kernels.ops``,
+``models.layers`` and ``workloads.registry``; ``DELIBERATE`` lists the
+names the port leaves out on purpose (ROADMAP §3), whose cases assert
+that they are absent.  The kernel modules' entries under the reference's
+names are held against its Pallas kernels in interpret mode on the CPU,
+at its own tests' tolerances (``tests/test_kernels.py``).
 """
 import importlib
 import importlib.util
 import types
 
+import numpy as np
 import pytest
+import torch
 
 PACKAGES = ("core", "sched", "workloads", "configs", "api", "kernels",
             "train", "")
@@ -167,3 +178,142 @@ def test_launch_facade_holds_mesh_roofline_shardings_not_dryrun():
     assert "ShardingPlan" in ref_sh.__all__ and not hasattr(ref_sh,
                                                             "ShardingPlan")
     assert shardings.__all__[:2] == ["Plan", "make_plan"]
+
+
+# --------------------------------------------------------------------------- #
+# module level                                                                #
+# --------------------------------------------------------------------------- #
+MODULES = ("kernels.alloc_matvec", "kernels.flash_attention",
+           "kernels.rglru_scan", "kernels.rwkv6_scan", "kernels.ops",
+           "models.layers", "workloads.registry")
+#: (module, name) of the reference's that the port leaves out on purpose
+DELIBERATE = {
+    ("kernels.ops", "set_backend"):
+        "the device of the data picks the version: no process-wide switch",
+    ("kernels.ops", "get_backend"):
+        "the device of the data picks the version: no process-wide switch"}
+MODULE_CASES = [(m, n) for m in MODULES
+                for n in _public(importlib.import_module("repro." + m))]
+
+
+@pytest.mark.parametrize("mod,name", MODULE_CASES,
+                         ids=[f"{m}.{n}" for m, n in MODULE_CASES])
+def test_reference_module_name_resolves_on_the_port(mod, name):
+    port = importlib.import_module("repro_torch." + mod)
+    if (mod, name) in DELIBERATE:
+        assert not hasattr(port, name), DELIBERATE[(mod, name)]
+        return
+    assert hasattr(port, name), f"repro_torch.{mod}: {name!r} is missing"
+
+
+@pytest.mark.parametrize("mod", [m for m in MODULES if hasattr(
+    importlib.import_module("repro." + m), "__all__")])
+def test_port_module_all_holds_the_reference_names(mod):
+    ref = importlib.import_module("repro." + mod).__all__
+    port = importlib.import_module("repro_torch." + mod)
+    assert set(ref) <= set(port.__all__)
+    assert len(set(port.__all__)) == len(port.__all__)
+    space = {}
+    exec(f"from {port.__name__} import *", space)      # noqa: S102
+    assert all(n in space for n in port.__all__)
+
+
+def test_workload_kinds_is_the_live_registry():
+    from repro.workloads import registry as ref
+    from repro_torch.workloads import registry
+    space = {}
+    exec("from repro_torch.workloads.registry import *", space)  # noqa: S102
+    assert space["WORKLOAD_KINDS"] == tuple(registry.list_workloads())
+    assert set(ref.WORKLOAD_KINDS) <= set(space["WORKLOAD_KINDS"])
+
+
+def _rand(seed, shape, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def test_alloc_matvec_names_equal_the_reference_bit_for_bit():
+    import jax
+    from repro.kernels import alloc_matvec as ref
+
+    from repro_torch.kernels import alloc_matvec as port
+    rng = np.random.default_rng(7)
+    weight = rng.random((3, 10, 37)) * (rng.random((3, 10, 37)) < 0.4)
+    x = rng.random((3, 37))
+    with jax.enable_x64(True):
+        want = np.asarray(ref.alloc_matvec(weight, x, interpret=True))
+        want_ref = np.asarray(ref.alloc_matvec_ref(weight, x))
+    got = port.alloc_matvec(weight, x, interpret=True)
+    assert got.dtype == torch.float64
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(port.alloc_matvec_ref(weight, x).numpy(), want_ref)
+
+
+@pytest.mark.parametrize("causal,window,Tq,Tk", [(True, 0, 128, 128),
+                                                 (True, 32, 128, 128),
+                                                 (False, 0, 64, 192)])
+def test_flash_attention_name_matches_the_reference(causal, window, Tq, Tk):
+    import jax.numpy as jnp
+    from repro.kernels import flash_attention as ref
+
+    from repro_torch.kernels import flash_attention as port
+    q, k, v = (_rand(i, s) for i, s in enumerate(
+        [(2, Tq, 4, 32), (2, Tk, 2, 32), (2, Tk, 2, 32)]))
+    off = Tk - Tq if causal else 0
+    want = ref.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                               causal=causal, window=window, q_offset=off,
+                               block_q=64, block_k=64, interpret=True)
+    got = port.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=causal, window=window, q_offset=off,
+                               block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_flash_decode_name_matches_the_reference():
+    import jax.numpy as jnp
+    from repro.kernels import flash_attention as ref
+
+    from repro_torch.kernels import flash_attention as port
+    q, k, v = _rand(10, (3, 8, 64)), _rand(11, (3, 256, 2, 64)), \
+        _rand(12, (3, 256, 2, 64))
+    lens = np.array([10, 100, 255], np.int32)
+    want = ref.flash_decode(*(jnp.asarray(a) for a in (q, k, v)),
+                            jnp.asarray(lens), block_k=64, interpret=True)
+    got = port.flash_decode(*(torch.from_numpy(a) for a in (q, k, v)),
+                            torch.from_numpy(lens), block_k=64,
+                            interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_wkv6_name_matches_the_reference():
+    import jax.numpy as jnp
+    from repro.kernels import rwkv6_scan as ref
+
+    from repro_torch.kernels import rwkv6_scan as port
+    B, T, H, dk, dv = 1, 64, 2, 32, 32
+    r, k, v = (0.5 * _rand(20 + i, (B, T, H, d))
+               for i, d in enumerate((dk, dk, dv)))
+    w = (0.5 / (1.0 + np.exp(-_rand(23, (B, T, H, dk)))) + 0.45).astype(
+        np.float32)
+    u, s0 = 0.5 * _rand(24, (H, dk)), 0.1 * _rand(25, (B, H, dk, dv))
+    args = (r, k, v, w, u, s0)
+    y_want, s_want = ref.wkv6(*(jnp.asarray(a) for a in args), block_t=32,
+                              interpret=True)
+    y, sT = port.wkv6(*(torch.from_numpy(a) for a in args), block_t=32,
+                      interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_want), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(sT.numpy(), np.asarray(s_want), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_split_tree_splits_a_generator_into_independent_streams():
+    from repro_torch.models.layers import split_tree, uinit
+    gens = split_tree(torch.Generator().manual_seed(4), 3)
+    again = split_tree(torch.Generator().manual_seed(4), 3)
+    assert len(gens) == 3
+    draws = [uinit(g, (8, 8), None, torch.float32, "cpu") for g in gens]
+    assert all(torch.equal(d, uinit(g, (8, 8), None, torch.float32, "cpu"))
+               for d, g in zip(draws, again))
+    assert not torch.equal(draws[0], draws[1])

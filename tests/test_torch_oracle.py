@@ -257,12 +257,48 @@ def _add_at(nodes, vals, n_nodes):
     return out
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_node_usage_plain_equals_in_order_add_at(seed):
-    nodes, vals = _usage_lists(seed)
-    got = node_usage_batch(nodes, vals, 128, device="cpu")
-    ref = _add_at(nodes, vals, 128)
-    assert got.shape == (16, 128) and np.array_equal(got, ref)
+#: (lanes, nodes, entries) of the edges of the card's kernel (16 nodes a
+#: CTA, rows of 32 entries, tiles of 4,096), which ``chip_smoke.py`` runs
+EDGES = {"one_node": (2, 128, 4096), "negative_ids": (3, 64, 300),
+         "k_ragged": (4, 128, 1000), "no_entries": (2, 16, 0),
+         "n_ragged": (4, 203, 2049), "one_lane": (1, 128, 4096)}
+
+
+def _usage_case(case):
+    """(nodes, vals, n_nodes): a seed of :func:`_usage_lists`, or an edge:
+    every entry of lane 0 naming one node (4,096 adds in one chain), ids
+    below 0, K not a multiple of 32, K = 0, N not a multiple of 16, one
+    lane."""
+    if isinstance(case, int):
+        return (*_usage_lists(case), 128)
+    B, n_nodes, K = EDGES[case]
+    rng = np.random.default_rng(len(case))
+    nodes = rng.integers(0, n_nodes, (B, K))
+    vals = rng.random((B, K)) * rng.choice([1e-9, 1.0, 1e9], (B, K))
+    if case == "one_node":
+        nodes[0] = 77
+    elif case == "negative_ids":
+        neg = rng.random((B, K)) < 0.3
+        nodes[neg] = -rng.integers(1, n_nodes + 1, int(neg.sum()))
+    return nodes, vals, n_nodes
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, *EDGES])
+def test_node_usage_plain_equals_in_order_add_at(case):
+    nodes, vals, n_nodes = _usage_case(case)
+    B = nodes.shape[0]
+    got = node_usage_batch(nodes, vals, n_nodes, device="cpu")
+    ref = _add_at(nodes, vals, n_nodes)
+    assert got.shape == (B, n_nodes) and np.array_equal(got, ref)
+    one = node_usage(nodes[B - 1], vals[B - 1], n_nodes, device="cpu")
+    assert np.array_equal(one, ref[B - 1])
+    if case == "one_node":              # the chain of adds, in list order
+        acc = 0.0
+        for v in vals[0]:
+            acc += v
+        assert got[0, 77] == acc and np.count_nonzero(got[0]) == 1
+    if not isinstance(case, int):
+        return
     assert not got[0].any()
     # lane 1's repeated node gives another sum in another order
     fwd = rev = 0.0
