@@ -110,7 +110,10 @@ fails ends the run with exit code 1:
                each runs in a process of its own (``chip_smoke.py --part
                <name>``), all six started together once phase 3 has
                ended, so their walls overlap one another (never a phase
-               of 5-10's); the script prints each part's lines, in phase
+               of 5-10's); a seventh, at nice 19, runs phase 9 (a)'s
+               checks of the MoE, MLA / MTP, encoder-decoder and vision
+               families on the cores and the card's memory the others
+               leave free; the script prints each part's lines, in phase
                order, once it has ended, then 4d's line, and fails if any
                part failed;
 4e. slice serve — the multi-tenant session server, every session on the
@@ -286,7 +289,10 @@ fails ends the run with exit code 1:
                off the path and timed beside ``torch.addcmul``), with the
                ptxas registers and spills of the route's kernel
                functions; beside each model kernel, its
-               launches on the training path (phase 9);
+               launches on the training path (phase 9), attention's
+               also timed in fp32 at each shape the checks of the MoE,
+               MLA / MTP, encoder-decoder and vision families launched it
+               in (a), against its plain version and SDPA;
 9. train     — the training path, fp32, AdamW unless said: (b) ``python -m repro_torch.launch.train``
                as a process at SmolLM-360M's full size (32 layers, d_model
                960, 15 query heads over 5 of 64, vocab 49,152, tied),
@@ -309,13 +315,27 @@ fails ends the run with exit code 1:
                with int8 compression; RecurrentGemma-2B one super-block at
                1 x 256 (the RG-LRU scan on its chunked route) and RWKV6-7B
                one layer at 1 x 256 (the WKV recurrence on its chunked
-               route), one step each at 1e-3;
-               every step's loss and grad norm within rel 1e-4, every
-               leaf of the final state (parameters, moments, error
+               route), one step each at 1e-3; then, in a part of their
+               own (see "parts"), the families the CPU tests alone
+               trained before: Qwen1.5-MoE-A2.7B's 2 of 24 layers (both
+               MoE: 60 routed experts top-4, 4 gated shared) at 2 x 256,
+               one step; DeepSeek-V3's first layer (MLA over a dense MLP)
+               and its MTP depth at 1 x 256, one Adafactor step;
+               Whisper-large-v3's 2 + 2 of 32 + 32 layers at 1 x 448 over
+               1,500 frames, 2 steps with int8 compression;
+               InternVL2-76B's first of 80 layers at 1 x 512 (256
+               patches), one Adafactor step; every step's loss, grad
+               norm, MoE auxiliary loss and MTP loss within rel 1e-4,
+               every leaf of the final state (parameters, moments, error
                feedback) within atol = rtol = 2e-3, Adafactor's bf16 first
                moment and a compressed run's leaves within a budget (up to
                max(2, 0.5 %) of a leaf's elements outside, all within
-               0.05), and every kernel launch counted on its instance.
+               0.05), and every kernel launch counted on its instance
+               (attention's also by shape) and equal to the count the
+               config implies (``train_launches``); the MoE routing
+               recorded on both sides, a flip passing only on a near-tie
+               of the host (the leaves it moved named); each check's
+               host and card seconds and peak host and card memory.
 
 10. dry run  — (a) ``python -m repro_torch.launch.dryrun`` (its ``main``)
                over every shape and both meshes, one job an arch in a
@@ -2994,11 +3014,13 @@ class routing_recorder:
         self.apply = apply = moe.moe_apply
 
         def recorded(cfg, p, x):
-            _, _, probs = moe.router_probs(cfg, p, x)
-            k = cfg.top_k
-            top = torch.topk(probs, k + 1, dim=-1)
-            calls.append((top.indices[:, :k].sort(dim=-1).values.cpu(),
-                          (top.values[:, k - 1] - top.values[:, k]).cpu()))
+            with torch.no_grad():       # outside a training step's graph
+                _, _, probs = moe.router_probs(cfg, p, x)
+                k = cfg.top_k
+                top = torch.topk(probs, k + 1, dim=-1)
+                calls.append((top.indices[:, :k].sort(dim=-1).values.cpu(),
+                              (top.values[:, k - 1]
+                               - top.values[:, k]).cpu()))
             return apply(cfg, p, x)
         moe.moe_apply = recorded
         return calls
@@ -3007,26 +3029,29 @@ class routing_recorder:
         self.moe.moe_apply = self.apply
 
 
-def routing_report(host, card, n_moe):
+def routing_report(host, card, n_moe, where=None):
     """Both sides' routing (:class:`routing_recorder`), call by call in
-    order (a step's MoE layers, step after step; the prefill is step 0):
-    the assignments that differ, by layer, and the host's margin at each.
+    order: the assignments that differ, by layer, and the host's margin at
+    each.  ``where(i)`` is call i's (step, layer); by default a step's MoE
+    layers in order, step after step (the prefill is step 0).
     Flips at the first call that has any arise from near-ties only (that
     call's inputs agree within the check's tolerance), so they pass when
     the host's margin is below FLIP_MARGIN at every one; later ones follow
     from them (an expert changed, capacity taken from another token, the
     caches written) and are reported."""
+    where = where or (lambda i: divmod(i, n_moe))
     flips, margins, by_layer, first = 0, [], [0] * n_moe, None
     for i, ((h_idx, h_margin), (c_idx, _)) in enumerate(zip(host, card)):
         bad = (h_idx != c_idx).any(-1)
         n = int(bad.sum())
         if not n:
             continue
+        step, layer = where(i)
         flips += n
-        by_layer[i % n_moe] += n
+        by_layer[layer] += n
         margins += h_margin[bad].tolist()
         if first is None:
-            first = {"call": i, "step": i // n_moe, "layer": i % n_moe,
+            first = {"call": i, "step": step, "layer": layer,
                      "tokens": n, "host_margins": h_margin[bad].tolist()}
     ok = len(host) == len(card) and (
         first is None or max(first["host_margins"]) < FLIP_MARGIN)
@@ -3954,32 +3979,163 @@ def node_usage_entry(torch, functions, launches, paper):
 # (then the moments carry step 1's gradients into the comparison), 1e-3
 # from the first step where it takes one
 TRAIN_LR, TRAIN_TOTAL = 1e-3, 100
-TRAIN_METRIC_RTOL = 1e-4        # loss and grad_norm of every step
+TRAIN_METRIC_RTOL = 1e-4        # every step's loss, grad norm, aux and mtp
 TRAIN_TOL = MODEL_TOL           # every leaf of the final state, atol = rtol
 # a leaf class held to a budget instead: up to max(2, 0.5 %) of its
 # elements outside TRAIN_TOL, all within 0.05 (tests/train_compare.py)
 TRAIN_LOOSE_FRAC, TRAIN_LOOSE_ABS = 0.005, 0.05
 # (a): (arch, layers, batch, tokens, steps, microbatches, Adafactor, int8
-# compression, weight seed).  RecurrentGemma-2B and RWKV6-7B take one step:
-# their host side is bound by the optimizer over their vocabularies'
-# embedding and head (2 x 655 M and 2 x 268 M parameters), which a shorter
-# T does not cut
+# compression, weight seed), full width, cut in depth alone
+# (train_config).  A check's host side is bound by work in proportion to
+# the parameters (the optimizer over the vocabularies' embedding and head,
+# the gradients' sums), which a shorter T does not cut, so the large ones
+# take one step.  After RecurrentGemma-2B and RWKV6-7B come the families
+# the CPU tests alone trained before: Qwen1.5-MoE's two MoE layers (the
+# routed path, whose softmax router DeepSeek-V3 shares: its 256-expert
+# layer, 11.3 B parameters, about 181 GB with AdamW's moments, does not
+# fit the card), DeepSeek-V3's first layer (MLA over a dense MLP) and its
+# MTP depth, Whisper-large-v3's 2 + 2 layers over 1,500 frames (the
+# least host memory: first, while phase 10 (a)'s pool runs),
+# InternVL2-76B's first layer with its 256 patches.  Qwen1.5-MoE takes
+# one microbatch of one step, Whisper one row (PERF.md section 4): more
+# ran out of the card's memory or the script's time.  They
+# run as a part (train_families), while the scheduling phases leave the
+# card's memory free: an optimizer step holds the old state, the
+# gradients and the new one at once (DeepSeek-V3: 69 GB of the card, 64
+# GB of the host).  Weight seeds: their model checks'.
 TRAIN_CHECKS = (
     ("smollm-360m", 2, 2, 512, 3, 1, False, False, 2406),
     ("smollm-360m", 2, 2, 512, 3, 2, True, False, 2406),
     ("smollm-360m", 2, 2, 512, 3, 1, False, True, 2406),
     (RG, 3, 1, 256, 1, 1, False, False, 2402),
     (RWKV, 1, 1, 256, 1, 1, False, False, 2404),
+    (WHISPER, 2, 1, 448, 2, 1, False, True, 2416),
+    (QWEN_MOE, 2, 2, 256, 1, 1, False, False, 2413),
+    (DEEPSEEK, 1, 1, 256, 1, 1, True, False, 2414),
+    (INTERNVL, 1, 1, 512, 1, 1, True, False, 2417),
 )
 # the kernels each arch's training launches, and the instance of each
-TRAIN_KERNELS = {"smollm-360m": {"flash_attention": "cuda_cores"},
+# (fp32: attention on the CUDA cores)
+_TRAIN_ATTN = {"flash_attention": "cuda_cores"}
+TRAIN_KERNELS = {"smollm-360m": _TRAIN_ATTN,
                  RG: {"flash_attention": "cuda_cores",
                       "rglru_scan": "chunked"},
-                 RWKV: {"wkv6": "chunked"}}
+                 RWKV: {"wkv6": "chunked"},
+                 QWEN_MOE: _TRAIN_ATTN, DEEPSEEK: _TRAIN_ATTN,
+                 WHISPER: _TRAIN_ATTN, INTERNVL: _TRAIN_ATTN}
+# the archs whose checks of (a) run as a part of their own beside phases
+# 4-4e and 10 (a) (train_families), and whose attention shapes the
+# kernels line times
+TRAIN_PART_ARCHS = (QWEN_MOE, DEEPSEEK, WHISPER, INTERNVL)
+# that part's niceness: it takes the cores the other parts leave idle,
+# with half the cores' threads, which sleep when idle (PART_ENV)
+TRAIN_PART_NICE = 19
 # (b): the launcher at full size
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "smollm-360m", 12, 4, 1024
 TRAIN_CKPT_EVERY, TRAIN_FAILURES = 4, (6, 9)
 TRAIN_LOSS_RTOL = 1e-5          # the reference's restart bound
+
+
+def train_config(case):
+    """The config a check of (a) trains: its arch's published one with
+    ``n_layers`` cut to the case's layers (and an encoder-decoder's
+    ``encoder_layers`` too), nothing else changed."""
+    from repro_torch.configs import get_config
+
+    arch, layers = case[:2]
+    cfg = get_config(arch)
+    cut = {"n_layers": layers}
+    if cfg.is_encdec:
+        cut["encoder_layers"] = layers
+    return dataclasses.replace(cfg, **cut)
+
+
+def train_launches(cfg, kernel):
+    """Launches of ``kernel`` in one microbatch of a train step under
+    remat: two for each of a prefill's calls (:func:`kernel_calls`: the
+    decoder layers of its kinds, their cross-attention, the encoder's
+    layers), the forward and the recompute; and attention's one more for
+    an MTP depth, whose block ``_mtp_loss`` runs without remat."""
+    return 2 * kernel_calls(cfg, kernel) + int(
+        kernel == "flash_attention" and cfg.mtp)
+
+
+def train_routing_where(n_moe, microbatches):
+    """(step, layer) of each MoE call a train step records: in each
+    microbatch the forward's layers in order, then the remat recompute's
+    in reverse (the backward's order)."""
+    layer = list(range(n_moe)) + list(reversed(range(n_moe)))
+    per_step = 2 * n_moe * microbatches
+    return lambda i: (i // per_step, layer[i % (2 * n_moe)])
+
+
+class attention_shapes:
+    """Within its block, the card's flash attention launches counted by
+    their arguments, ``(B, Tq, Tk, H, Hkv, hd, hdv, causal, scale)``, by
+    wrapping ``ops.flash_attention_cuda``, which ``ops`` calls where it
+    launches the kernel."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.counts = ops, Counter()
+
+    def __enter__(self):
+        self.kernel = kernel = self.ops.flash_attention_cuda
+        counts = self.counts
+
+        def counted(q, k, v, *, causal=True, window=0, q_offset=0,
+                    scale=None):
+            B, Tq, H, hd = q.shape
+            counts[(B, Tq, k.shape[1], H, k.shape[2], hd, v.shape[-1],
+                    bool(causal), scale)] += 1
+            return kernel(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, scale=scale)
+        self.ops.flash_attention_cuda = counted
+        return counts
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention_cuda = self.kernel
+
+
+class peak_memory:
+    """Within its block, a thread reads every 0.1 s this process's
+    resident memory (``VmRSS``) and the card's memory in use by every
+    process (``cudaMemGetInfo``): the peaks, in bytes, as ``host`` and
+    ``card``."""
+
+    def __init__(self, torch):
+        import threading
+        self.torch, self.host, self.card = torch, 0, 0
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self):
+        with open("/proc/self/status") as f:
+            rss = next(int(line.split()[1]) * 1024 for line in f
+                       if line.startswith("VmRSS:"))
+        free, total = self.torch.cuda.mem_get_info()
+        self.host = max(self.host, rss)
+        self.card = max(self.card, total - free)
+
+    def _run(self):
+        while not self.stop.wait(0.1):
+            self._sample()
+
+    def __enter__(self):
+        self._sample()
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self._sample()
+
+
+def _host_mem_total():
+    with open("/proc/meminfo") as f:
+        return next(int(line.split()[1]) * 1024 for line in f
+                    if line.startswith("MemTotal:"))
 
 
 def _leaf_diff(torch, card, host, bf16):
@@ -3993,55 +4149,80 @@ def _leaf_diff(torch, card, host, bf16):
     return int((d > TRAIN_TOL + rtol * h.abs()).sum()), float(d.max())
 
 
+def _named_leaves(tree, path=""):
+    """(path, leaf) of a train state's tree in ``train.tree.flatten``'s
+    order: dict keys sorted, list and tuple items by index, ``None``
+    empty."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, tree
+
+
 def _compare_states(torch, card, host, loose):
     """Every leaf of the card's final train state against the host's, by
     class (params, mu, nu, err): leaves, elements, elements outside
-    TRAIN_TOL, the largest difference; ``loose`` names the classes held to
-    the budget, the others must have none outside."""
-    from repro_torch.train.tree import flatten
-
+    TRAIN_TOL, the largest difference and the leaves with any element
+    outside; ``loose`` names the classes held to the budget, the others
+    must have none outside."""
     classes = {"params": card.params, "mu": card.opt.mu, "nu": card.opt.nu,
                "err": card.err}
     hosts = {"params": host.params, "mu": host.opt.mu, "nu": host.opt.nu,
              "err": host.err}
     out, ok = {}, bool(int(card.opt.step) == int(host.opt.step))
     for name, tree in classes.items():
-        cl, hl = flatten(tree)[0], flatten(hosts[name])[0]
+        cl = list(_named_leaves(tree))
+        hl = [h for _, h in _named_leaves(hosts[name])]
         if not cl:
             continue
         n_out = n_el = 0
-        worst = 0.0
-        for c, h in zip(cl, hl):
+        worst, outside = 0.0, []
+        for (path, c), h in zip(cl, hl):
             bad, d = _leaf_diff(torch, c, h, c.dtype == torch.bfloat16)
             n_out += bad
             n_el += c.numel()
             worst = max(worst, d)
+            if bad:
+                outside.append(path)
             if name in loose:
                 ok &= (bad <= max(2, int(TRAIN_LOOSE_FRAC * c.numel()))
                        and d <= TRAIN_LOOSE_ABS)
             else:
                 ok &= bad == 0
         out[name] = {"leaves": len(cl), "elements": n_el, "outside": n_out,
-                     "max_abs_diff": worst, "budget": name in loose}
+                     "max_abs_diff": worst, "budget": name in loose,
+                     "outside_leaves": outside}
     return out, ok
 
 
 def train_check(torch, np, case):
-    """Part (a): ``case``'s arch at full width, cut in depth, fp32 weights
-    drawn on the card and copied to the host, ``steps`` train steps on the
-    card (kernels forward) and on the host (plain versions) on the same
-    tokens; every step's loss and grad norm and every leaf of the final
-    state compared; the kernels' launches and instances counted."""
+    """Part (a): ``case``'s arch at full width, cut in depth
+    (:func:`train_config`), fp32 weights drawn on the card and copied to
+    the host, ``steps`` train steps on the card (kernels forward) and on
+    the host (plain versions) on the same tokens and frontend inputs;
+    every step's loss, grad norm and the family's ``aux`` and ``mtp``, and
+    every leaf of the final state compared; the kernels' launches and
+    instances counted, attention's also by shape; a MoE cut's routing
+    recorded on both sides (:class:`routing_recorder`): a flip passes only
+    on a near-tie of the host (:func:`routing_report`), and the line names
+    the leaves it moved; each side's peak host and card memory.  Returns
+    the launches and the attention launches by shape."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models.config import layer_plan
+    from repro_torch.models.config import MOE, layer_plan
     from repro_torch.train import trainer
     from repro_torch.train.data import data_for
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.tree import leaves, tree_map
 
     arch, layers, B, T, steps, mb, factored, compress, seed = case
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    cfg = train_config(case)
+    published = get_config(arch)
+    n_moe = sum(b.mlp == MOE for b in layer_plan(cfg))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     t0 = time.perf_counter()
@@ -4058,41 +4239,62 @@ def train_check(torch, np, case):
         microbatches=mb, compress_grads=compress)
     data = data_for(cfg, B, T, seed=seed, device="cpu")
     batches = [data.batch_for_step(i) for i in range(steps)]
+    held = ["loss", "grad_norm", "aux"] + (["mtp"] if cfg.mtp else [])
 
     def run(state, device):
         metrics = []
-        t = time.perf_counter()
-        for b in batches:
-            state, m = step(state, {k: v.to(device) for k, v in b.items()})
-            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm",
-                                                     "lr")})
-        return state, metrics, time.perf_counter() - t
+        with routing_recorder(torch) as routing:
+            t = time.perf_counter()
+            for b in batches:
+                state, m = step(state, {k: v.to(device)
+                                        for k, v in b.items()})
+                metrics.append({k: float(m[k]) for k in held + ["lr"]})
+            seconds = time.perf_counter() - t
+        return state, metrics, seconds, routing
 
-    host, host_m, host_s = run(host, "cpu")
+    with peak_memory(torch) as host_mem:
+        host, host_m, host_s, host_routing = run(host, "cpu")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    card, card_m, card_s = run(card, "cuda")
+    with peak_memory(torch) as card_mem, attention_shapes() as shapes:
+        card, card_m, card_s, card_routing = run(card, "cuda")
     kernels = TRAIN_KERNELS[arch]
     launches = {k: ops.launches[k] for k in kernels}
     routes = {k: dict(ops.routes[k]) for k in kernels}
-    # forward and remat recompute: two launches a layer of its kinds a
-    # microbatch a step
-    expected = {k: {inst: 2 * steps * mb * sum(
-        b.kind in _KINDS[k] for b in layer_plan(cfg))}
-        for k, inst in kernels.items()}
+    expected = {k: {inst: steps * mb * train_launches(cfg, k)}
+                for k, inst in kernels.items()}
     metric_gap = {k: max(abs(c[k] - h[k]) / max(abs(h[k]), 1e-30)
-                         for c, h in zip(card_m, host_m))
-                  for k in ("loss", "grad_norm")}
+                         for c, h in zip(card_m, host_m)) for k in held}
     loose = (("params", "mu", "nu", "err") if compress
              else ("mu",) if factored else ())
     states, states_ok = _compare_states(torch, card, host, loose)
+    routing = (routing_report(host_routing, card_routing, n_moe,
+                              train_routing_where(n_moe, mb))
+               if n_moe else None)
+    # a flip on a near-tie sends a token to another expert: the leaves it
+    # moves are named, not held
+    flipped = bool(routing and routing["flips"])
     finite = all(np.isfinite(m["loss"]) for m in card_m)
-    ok = (finite and states_ok and routes == expected
+    ok = (finite and routes == expected
+          and (routing is None or routing["ok"])
+          and (states_ok or flipped)
           and all(v <= TRAIN_METRIC_RTOL for v in metric_gap.values()))
+    first = batches[0]
     emit({"phase": "train", "part": "card against host", "ok": ok,
-          "arch": arch, "layers": layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab, "batch": B, "tokens": T, "steps": steps,
-          "microbatches": mb,
+          "arch": arch, "layers": layers,
+          "encoder_layers": cfg.encoder_layers, "mtp": cfg.mtp,
+          "cut": {f.name: [getattr(cfg, f.name), getattr(published, f.name)]
+                  for f in dataclasses.fields(cfg)
+                  if getattr(cfg, f.name) != getattr(published, f.name)},
+          "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+          "vocab": cfg.vocab, "moe_layers": n_moe,
+          "experts": [cfg.n_experts, cfg.top_k, cfg.capacity_factor],
+          "batch": B, "tokens": T, "steps": steps, "microbatches": mb,
+          "frames": first["enc_embeds"].shape[1] if cfg.is_encdec else 0,
+          "patches": (first["vision_embeds"].shape[1]
+                      if cfg.frontend == "vision" else 0),
           "optimizer": "adafactor" if factored else "adamw",
           "compress_grads": compress, "dtype": "float32",
           "params": sum(p.numel() for p in leaves(card.params)),
@@ -4102,16 +4304,31 @@ def train_check(torch, np, case):
                                    "abs": TRAIN_LOOSE_ABS}},
           "card_metrics": card_m, "host_metrics": host_m,
           "metric_rel_gap": metric_gap, "state": states,
+          "routing": routing,
+          "moved_by_flips": sorted({p for c in states.values()
+                                    for p in c["outside_leaves"]})
+          if flipped else [],
           "launches": launches, "routes": routes,
-          "expected_routes": expected, "init_s": init_s,
-          "host_s": host_s, "card_s": card_s})
+          "expected_routes": expected,
+          "attention_shapes": [{"shape": list(key[:7]), "causal": key[7],
+                                "scale": key[8], "launches": n}
+                               for key, n in shapes.items()],
+          "memory": {"host_peak_rss_bytes": host_mem.host,
+                     "host_mem_total_bytes": _host_mem_total(),
+                     "card_peak_allocated_bytes":
+                         torch.cuda.max_memory_allocated(),
+                     "card_peak_in_use_bytes": max(host_mem.card,
+                                                   card_mem.card),
+                     "card_total_bytes": torch.cuda.mem_get_info()[1]},
+          "init_s": init_s, "host_s": host_s, "card_s": card_s})
     del card, host
+    gc.collect()
     torch.cuda.empty_cache()
     if not ok:
         raise PhaseFailed(f"training on the card disagrees with the host "
                           f"({arch}, {case[5:8]}) or a kernel ran off its "
                           f"instance")
-    return launches
+    return launches, shapes
 
 
 def _launcher(args, tmp, name):
@@ -4187,10 +4404,26 @@ def traced_train_step(torch):
     return busy
 
 
-def phase_train(torch, np):
+def train_families(torch, np):
+    """The checks of (a) for TRAIN_PART_ARCHS, as a part of their own at
+    TRAIN_PART_NICE: their launches (``"arch:kernel"``) and attention
+    launches by shape, by arch."""
+    os.nice(TRAIN_PART_NICE)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    launches, shapes = Counter(), {}
+    for case in TRAIN_CHECKS:
+        if case[0] in TRAIN_PART_ARCHS:
+            got, shapes[case[0]] = train_check(torch, np, case)
+            launches.update({f"{case[0]}:{k}": v for k, v in got.items()})
+    return launches, shapes
+
+
+def phase_train(torch, np, families):
     """Phase 9: (b) the launcher at full size, clean, alone; one traced
     step; then (b)'s run with failures in the background while (a) holds
-    the card's training against the host's."""
+    the card's training against the host's (but for TRAIN_PART_ARCHS,
+    whose checks ran as a part: ``families`` is what
+    :func:`train_families` returned)."""
     import shutil
     import tempfile
 
@@ -4209,13 +4442,15 @@ def phase_train(torch, np):
         faulty_proc, fck, frep = _launcher(
             ["--inject-failures", ",".join(map(str, TRAIN_FAILURES))], tmp,
             "faulty")
-        check_launches = Counter()
+        check_launches, check_shapes = Counter(families[0]), families[1]
         threads = torch.get_num_threads()
         # leave the launcher's process a core or two for its dispatch
         torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
         try:
             for case in TRAIN_CHECKS:
-                launches = train_check(torch, np, case)
+                if case[0] in TRAIN_PART_ARCHS:
+                    continue
+                launches, _ = train_check(torch, np, case)
                 for k, v in launches.items():
                     check_launches[f"{case[0]}:{k}"] += v
         except BaseException:
@@ -4283,44 +4518,50 @@ def phase_train(torch, np):
                                 "shape": [TRAIN_BATCH, TRAIN_SEQ,
                                           cfg.n_heads, cfg.n_kv_heads,
                                           cfg.head_dim]},
-            "checks": dict(check_launches),
+            "checks": dict(check_launches), "check_shapes": check_shapes,
             "step": {"ms": ms, "peak_bytes": clean["peak_bytes"],
                      "bound_s": bound_s}}
 
 
-def train_attention_fields(torch, shape):
-    """flash attention at the training path's shape (fp32, causal: the
-    ``cuda_cores`` instance), against its plain version and SDPA, timed
-    with both, beside its bound at FP32 67 TFLOP/s."""
+def train_attention_fields(torch, B, Tq, Tk, H, Hkv, hd, hdv, causal,
+                           scale):
+    """flash attention at a shape of the training path (fp32: the
+    ``cuda_cores`` instance), against its plain version and SDPA (the
+    backend it took named), timed with both, beside its bound at FP32 67
+    TFLOP/s."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
         attention_instance, flash_attention_cuda, flash_attention_plain)
 
-    B, T, H, Hkv, hd = shape
     gen = torch.Generator(device="cuda")
     gen.manual_seed(22)
-    q = _randn(torch, gen, (B, T, H, hd), torch.float32)
-    k = _randn(torch, gen, (B, T, Hkv, hd), torch.float32)
-    v = _randn(torch, gen, (B, T, Hkv, hd), torch.float32)
-    got = flash_attention_cuda(q, k, v, causal=True)
-    want = flash_attention_plain(q, k, v, causal=True)
+    q = _randn(torch, gen, (B, Tq, H, hd), torch.float32)
+    k = _randn(torch, gen, (B, Tk, Hkv, hd), torch.float32)
+    v = _randn(torch, gen, (B, Tk, Hkv, hdv), torch.float32)
+    kw = dict(causal=causal, scale=scale)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_kw = dict(is_causal=causal, scale=scale, enable_gqa=H != Hkv)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-    n_bytes = 4 * (2 * B * T * H * hd + 2 * B * T * Hkv * hd)
-    n_ops = 4 * hd * H * B * attention_pairs(T, T, True, 0)
+        return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+    backend = sdpa_backend(torch, qt, kt, vt, **sdpa_kw)
+    n_bytes = 4 * B * (Tq * H * (hd + hdv) + Tk * Hkv * (hd + hdv))
+    n_ops = 2 * (hd + hdv) * H * B * attention_pairs(Tq, Tk, causal, 0)
     bound, by = bound_ms(n_bytes, n_ops, FP32_OPS_PER_S)
-    return {"instance": attention_instance(q, k, v), "shape": list(shape),
-            "dtype": "float32", "max_abs_err": _err(got, want),
+    return {"instance": attention_instance(q, k, v),
+            "shape": [B, Tq, H, Hkv, hd] + ([hdv] if hdv != hd else [])
+            + ([Tk] if Tk != Tq else []),
+            "causal": causal, "scale": scale, "dtype": "float32",
+            "max_abs_err": _err(got, want),
             "library_max_abs_diff": _err(got, sdpa().transpose(1, 2)),
             "ms": device_ms(torch, lambda: flash_attention_cuda(
-                q, k, v, causal=True), 10),
+                q, k, v, **kw), 10),
             "plain_ms": device_ms(torch, lambda: flash_attention_plain(
-                q, k, v, causal=True), 2),
-            "library": "F.scaled_dot_product_attention",
+                q, k, v, **kw), 2),
+            "library": "F.scaled_dot_product_attention", **backend,
             "library_ms": device_ms(torch, sdpa, 10),
             "bound_ms": bound, "bound_by": by,
             "bound_rate": "FP32 67 TFLOP/s; HBM 3.35 TB/s"}
@@ -4329,18 +4570,30 @@ def train_attention_fields(torch, shape):
 def add_train_fields(torch, entries, trained):
     """Each model kernel's launches on the training path beside its
     serving ones: attention's in the launcher's clean run (phase 9 (b)),
-    with its time at that shape; each recurrence's chunked route's in its
-    arch's check (phase 9 (a)).  Returns whether the training instance
-    agrees with its plain version."""
+    with its time at that shape, and at each shape the checks of
+    TRAIN_PART_ARCHS launched it in (a), with its launches there; each
+    recurrence's chunked route's in its arch's check (phase 9 (a)).
+    Returns whether the training instances agree with the plain version
+    and were launched."""
     by_name = {"rglru_scan": f"{RG}:rglru_scan", "wkv6": f"{RWKV}:wkv6"}
     ok = True
     for e in entries:
         if e["name"] == "flash_attention":
             att = trained["flash_attention"]
+            B, T, H, Hkv, hd = att["shape"]
             e["train"] = dict(att, **train_attention_fields(
-                torch, att["shape"]))
+                torch, B, T, T, H, Hkv, hd, hd, True, None))
             ok &= (e["train"]["max_abs_err"] <= TOL["float32"]
                    and att["launches"] > 0)
+            e["train_checks"] = {}
+            for arch in TRAIN_PART_ARCHS:
+                shapes = trained["check_shapes"].get(arch, {})
+                e["train_checks"][_SUB_ENTRY[arch]] = fields = [
+                    dict(launches=n, where="phase 9 (a)",
+                         **train_attention_fields(torch, *key))
+                    for key, n in shapes.items()]
+                ok &= bool(fields) and all(
+                    f["max_abs_err"] <= TOL["float32"] for f in fields)
         elif e["name"] in by_name and e.get("instance") == "chunked":
             e["train"] = {"launches": trained["checks"].get(
                 by_name[e["name"]], 0), "route": "chunked",
@@ -4542,7 +4795,7 @@ def phase_dryrun_bounds(torch, served, trained):
 
 
 # --------------------------------------------------------------------------- #
-# the parts: phases 4-4e and 10 (a), a process each                           #
+# the parts: phases 4-4e, 10 (a) and 9 (a)'s families, a process each        #
 # --------------------------------------------------------------------------- #
 def _part_slice(torch, np):
     launches, stats, seed0 = phase_slice(torch, np)
@@ -4560,7 +4813,11 @@ PARTS = {"slice": _part_slice, "slice mcb8": phase_slice_mcb8,
          "slice session": phase_slice_session,
          "slice scenarios grid": scenarios_grid,
          "slice scenarios sessions": scenarios_sessions,
-         "dryrun": _part_dryrun}
+         "dryrun": _part_dryrun, "train families": train_families}
+#: environment added to a part's process (read as its OpenMP runtime
+#: loads): the families' threads sleep when idle, not spin on the cores
+#: the other parts use
+PART_ENV = {"train families": {"OMP_WAIT_POLICY": "PASSIVE"}}
 
 
 def run_parts():
@@ -4584,7 +4841,8 @@ def run_parts():
                         [sys.executable, str(Path(__file__).resolve()),
                          "--part", name, "--result", base + ".pkl",
                          "--start", repr(_START)],
-                        stdout=out, stderr=err, cwd=ROOT))
+                        stdout=out, stderr=err, cwd=ROOT,
+                        env={**os.environ, **PART_ENV.get(name, {})}))
             for name, (base, proc) in procs.items():
                 rc = proc.wait()
                 sys.stdout.write(Path(base + ".out").read_text())
@@ -4682,7 +4940,7 @@ def main() -> int:
             phase = f"serve {arch}"
             served[arch] = phase_serve(torch, np, arch)
         phase = "train"
-        trained = phase_train(torch, np)
+        trained = phase_train(torch, np, parts["train families"])
         phase = "dryrun tpu"
         phase_dryrun_tpu(torch, np, dry_records)
         phase = "dryrun bounds"
