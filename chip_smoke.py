@@ -182,7 +182,13 @@ fails ends the run with exit code 1:
                (cur_len = S_enc), InternVL2's prefill (1,500 tokens:
                wgmma<2>) and decode (a group of 8 over 4,096 slots:
                mma<1>); a decode over an empty cache (S = 0, the mirrored
-               server's cross cache) must give exactly 0 (fp32 2e-5, bf16 2e-2,
+               server's cross cache) must give exactly 0; every fp32
+               prefill case on the 3xTF32 instance (route ``tf32x3``, its
+               largest difference within 2e-5) but an fp32 q over bf16 k
+               and v and fp32 at head dim 60, which keep the CUDA-core
+               one; rows the masks leave with no key (q_offset < 0)
+               attend to every key with equal weight, as in the
+               reference, on all three prefill instances (fp32 2e-5, bf16 2e-2,
                the RG-LRU atol 1e-5 / rtol 1e-4, the WKV atol = rtol =
                1e-4: the reference's kernel tolerances);
 6. model check — per arch at full width, cut in depth, fp32, seeded
@@ -292,14 +298,18 @@ fails ends the run with exit code 1:
                launches on the training path (phase 9), attention's
                also timed in fp32 at each shape the checks of the MoE,
                MLA / MTP, encoder-decoder and vision families launched it
-               in (a), against its plain version and SDPA;
+               in (a), against its plain version and SDPA, with the
+               ``cuda_cores`` instance that took fp32 before the
+               ``tf32x3`` one forced on the same inputs, the registers
+               and spills of both, and a second bound, the three TF32
+               products of 3xTF32 at 495 TFLOP/s, beside the FP32 one;
 9. train     — the training path, fp32, AdamW unless said: (b) ``python -m repro_torch.launch.train``
                as a process at SmolLM-360M's full size (32 layers, d_model
                960, 15 query heads over 5 of 64, vocab 49,152, tied),
                batch 4 x 1,024 tokens, 12 steps, a checkpoint every 4,
                alone: ms a step, tokens/s, peak device memory, attention
                launches a step (forward and remat recompute: 2 a layer,
-               all on ``cuda_cores``), the least time a step could take
+               all on the ``tf32x3`` route), the least time a step could take
                (FP32 67 TFLOP/s); one step of the same size traced in this
                process for the busy share and the port's kernels' share;
                then the same run with failures injected at steps 6 and 9
@@ -380,11 +390,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 (non-tensor)
-# peaks, bf16 dense tensor-core peak
+# peaks, bf16 and TF32 dense tensor-core peaks
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+TF32_TC_OPS_PER_S = 495e12
 
 N_JOBS, N_NODES, LOAD = 1000, 128, 0.7
 MIN_SEEDS = 16          # GreedyP */OPT=MIN cells in phase 4 (slice)
@@ -449,7 +460,8 @@ HOST_NICE = 10          # the host reference pools' workers
 
 # the port's kernels, by the names the profiler gives them
 _PORT_KERNELS = ("alloc_matvec_kernel", "maxmin_solve_kernel", "attn_kernel",
-                 "attn_wgmma_kernel", "decode_kernel", "decode_mma_kernel",
+                 "attn_wgmma_kernel", "attn_tf32x3_kernel", "decode_kernel",
+                 "decode_mma_kernel",
                  "decode_combine_kernel", "rglru_scan_kernel",
                  "rglru_gated_kernel",
                  "rglru_chunk_summary_kernel", "rglru_chunk_out_kernel",
@@ -2162,7 +2174,7 @@ def serve_kill9(tmp, seed0):
     again = script + [{"op": "run", "session": "s0", "seq": 3},
                       {"op": "result", "session": "s0"}]
     walls, procs = {}, []
-    with open(Path(tmp) / "b.log", "w") as log:
+    with card_turn(), open(Path(tmp) / "b.log", "w") as log:
         try:
             proc, port, walls["first_start_s"] = _spawn_cli_server(
                 store, port_file, log)
@@ -2186,6 +2198,10 @@ def serve_kill9(tmp, seed0):
                  "--retry-for", "120"],
                 "\n".join(json.dumps(e) for e in again) + "\n"))
             walls["second_drive_s"] = time.perf_counter() - t0
+        except PhaseFailed as exc:
+            log.flush()
+            raise PhaseFailed(f"{exc}\nthe servers' log ends: "
+                              f"{(Path(tmp) / 'b.log').read_text()[-3000:]}")
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -2494,21 +2510,27 @@ def sdpa_backend(torch, *args, **kw):
             accepting}
 
 
-def prefill_check(torch, gen, dt, case, scale=None, timed=False):
+def prefill_check(torch, gen, dt, case, scale=None, timed=False,
+                  kv_dt=None):
     """One flash attention case against the plain version, with its route
     and instance; ``timed``: also device ms of the kernel and of SDPA on
     the same inputs, with SDPA's backend.  case: (label, B, Tq, Tk, H,
-    Hkv, hd, hdv, causal, window, q_offset)."""
+    Hkv, hd, hdv, causal, window, q_offset); k and v have type ``kv_dt``
+    (``dt`` when None), and a mixed call is held to bf16's tolerance."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
         attention_instance, attention_route, flash_attention_cuda,
         flash_attention_plain)
     label, B, Tq, Tk, H, Hkv, hd, hdv, causal, window, off = case
+    kv_dt = dt if kv_dt is None else kv_dt
     name = _dtype_name(torch, dt)
+    tol = TOL[_dtype_name(torch, kv_dt)] if kv_dt != dt else TOL[name]
+    if kv_dt != dt:
+        name += "+" + _dtype_name(torch, kv_dt)
     q = _randn(torch, gen, (B, Tq, H, hd), dt)
-    k = _randn(torch, gen, (B, Tk, Hkv, hd), dt)
-    v = _randn(torch, gen, (B, Tk, Hkv, hdv), dt)
+    k = _randn(torch, gen, (B, Tk, Hkv, hd), kv_dt)
+    v = _randn(torch, gen, (B, Tk, Hkv, hdv), kv_dt)
     kw = dict(causal=causal, window=window, q_offset=off, scale=scale)
     got = flash_attention_cuda(q, k, v, **kw)
     want = flash_attention_plain(q, k, v, **kw)
@@ -2519,8 +2541,7 @@ def prefill_check(torch, gen, dt, case, scale=None, timed=False):
            "shape": [B, Tq, Tk, H, Hkv, hd, hdv], "causal": causal,
            "window": window, "q_offset": off, "scale": scale,
            "max_abs_err": _err(got, want),
-           "ok": got.dtype == dt and _within(torch, got, want, TOL[name],
-                                             TOL[name])}
+           "ok": got.dtype == dt and _within(torch, got, want, tol, tol)}
     if timed:                  # causal, no window, no offset: SDPA's case
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_kw = dict(is_causal=causal, scale=scale, enable_gqa=H != Hkv)
@@ -2676,6 +2697,22 @@ def phase_serve_kernels(torch):
     # 1,500 cross frames (cur_len = S_enc), and InternVL2's prefill of
     # 1,500 tokens and decode over 4,096 slots; then a decode over an empty
     # cache (S = 0, the mirrored server's cross cache), which must give 0
+    # the CUDA-core instance keeps what neither tensor-core one takes (an
+    # fp32 q over bf16 k and v; fp32 at hd 60, no multiple of 8); rows the
+    # masks leave with no key (q_offset < 0) attend to every key with equal
+    # weight, as in the reference, on all three instances
+    for dt, kv_dt, case in [
+            (torch.float32, bf, ("mixed_fp32_q_bf16_kv", 2, 300, 300, 8, 2,
+                                 64, 64, True, 0, 0)),
+            (torch.float32, None, ("fp32_hd60", 1, 200, 200, 4, 1, 60, 60,
+                                   True, 0, 0)),
+            (torch.float32, None, ("rows_with_no_key", 2, 150, 150, 4, 2, 64,
+                                   64, True, 0, -70)),
+            (bf, None, ("rows_with_no_key", 2, 150, 150, 4, 2, 64, 64, True,
+                        0, -70)),
+            (torch.float32, bf, ("rows_with_no_key", 2, 150, 150, 4, 2, 64,
+                                 64, True, 0, -70))]:
+        checks.append(prefill_check(torch, gen, dt, case, kv_dt=kv_dt))
     for dt in (torch.float32, bf):
         for case in [
                 ("whisper_encoder", 1, 1500, 1500, 20, 20, 64, 64, False, 0,
@@ -2710,11 +2747,21 @@ def phase_serve_kernels(torch):
             ("whisper_cross_decode", "bfloat16"): "mma<1>",
             ("internvl2_decode_g8", "bfloat16"): "mma<1>",
             ("empty_cache", "bfloat16"): "mma<1>"}
+    # every fp32 prefill case on the 3xTF32 instance, but those that take
+    # the CUDA-core one
+    cuda_cores = {("mixed_fp32_q_bf16_kv", "float32+bfloat16"),
+                  ("fp32_hd60", "float32"),
+                  ("rows_with_no_key", "float32+bfloat16")}
     for c in checks:
         dt_name = c["dtype"] if c["kernel"] == "flash_attention" \
             else c["dtype"][1]
         if (c.get("case"), dt_name) in want:
             c["ok"] = c["ok"] and c["instance"] == want[(c["case"], dt_name)]
+        if c["kernel"] == "flash_attention" and dt_name.startswith("float32"):
+            route = ("cuda_cores" if (c["case"], dt_name) in cuda_cores
+                     else "tf32x3")
+            c["ok"] = c["ok"] and c["route"] == route and (
+                route != "tf32x3" or c["max_abs_err"] <= TOL["float32"])
     # (B, T, W, route: None for the one rglru_route picks)
     rt = rglru.CHUNKED_MIN_T
     for B, T, W, route in [
@@ -4014,11 +4061,12 @@ TRAIN_CHECKS = (
     (DEEPSEEK, 1, 1, 256, 1, 1, True, False, 2414),
     (INTERNVL, 1, 1, 512, 1, 1, True, False, 2417),
 )
-# the kernels each arch's training launches, and the instance of each
-# (fp32: attention on the CUDA cores)
-_TRAIN_ATTN = {"flash_attention": "cuda_cores"}
+# the kernels each arch's training launches, and the route of each (fp32:
+# attention on the tensor cores in 3xTF32, whose instance follows the
+# shape: route_counts)
+_TRAIN_ATTN = {"flash_attention": "tf32x3"}
 TRAIN_KERNELS = {"smollm-360m": _TRAIN_ATTN,
-                 RG: {"flash_attention": "cuda_cores",
+                 RG: {"flash_attention": "tf32x3",
                       "rglru_scan": "chunked"},
                  RWKV: {"wkv6": "chunked"},
                  QWEN_MOE: _TRAIN_ATTN, DEEPSEEK: _TRAIN_ATTN,
@@ -4048,6 +4096,15 @@ def train_config(case):
     if cfg.is_encdec:
         cut["encoder_layers"] = layers
     return dataclasses.replace(cfg, **cut)
+
+
+def route_counts(instances):
+    """Launches by route from launches by instance (``ops.routes``): an
+    instance's name up to its template arguments."""
+    out = Counter()
+    for name, n in instances.items():
+        out[name.split("<")[0]] += n
+    return dict(out)
 
 
 def train_launches(cfg, kernel):
@@ -4257,13 +4314,14 @@ def train_check(torch, np, case):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    with peak_memory(torch) as card_mem, attention_shapes() as shapes:
+    with card_turn(), peak_memory(torch) as card_mem, \
+            attention_shapes() as shapes:
         card, card_m, card_s, card_routing = run(card, "cuda")
     kernels = TRAIN_KERNELS[arch]
     launches = {k: ops.launches[k] for k in kernels}
     routes = {k: dict(ops.routes[k]) for k in kernels}
-    expected = {k: {inst: steps * mb * train_launches(cfg, k)}
-                for k, inst in kernels.items()}
+    expected = {k: {route: steps * mb * train_launches(cfg, k)}
+                for k, route in kernels.items()}
     metric_gap = {k: max(abs(c[k] - h[k]) / max(abs(h[k]), 1e-30)
                          for c, h in zip(card_m, host_m)) for k in held}
     loose = (("params", "mu", "nu", "err") if compress
@@ -4276,7 +4334,8 @@ def train_check(torch, np, case):
     # moves are named, not held
     flipped = bool(routing and routing["flips"])
     finite = all(np.isfinite(m["loss"]) for m in card_m)
-    ok = (finite and routes == expected
+    by_route = {k: route_counts(r) for k, r in routes.items()}
+    ok = (finite and by_route == expected
           and (routing is None or routing["ok"])
           and (states_ok or flipped)
           and all(v <= TRAIN_METRIC_RTOL for v in metric_gap.values()))
@@ -4483,7 +4542,8 @@ def phase_train(torch, np, families):
           and faulty["restored_from"] == [4, 8]
           and faulty["final_step"] == TRAIN_STEPS
           and rel_gap <= TRAIN_LOSS_RTOL
-          and clean["routes"]["flash_attention"] == {"cuda_cores": att}
+          and route_counts(clean["routes"]["flash_attention"])
+          == {"tf32x3": att}
           and per_step == 2 * n_attn)
     emit({"phase": "train", "part": "launcher", "ok": ok,
           "arch": TRAIN_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -4523,12 +4583,30 @@ def phase_train(torch, np, families):
                      "bound_s": bound_s}}
 
 
-def train_attention_fields(torch, B, Tq, Tk, H, Hkv, hd, hdv, causal,
-                           scale):
+def prefill_function(functions, instance, q, v):
+    """The ptxas entry (registers, spills) of the kernel function an fp32
+    prefill instance launches, ``instance`` named as ``ops.routes`` counts
+    it (the CUDA-core one's template arguments as csrc/attention.cu picks
+    them)."""
+    if instance.startswith("tf32x3<"):
+        nacc, keys, rows = instance[len("tf32x3<"):-1].split(",")
+        return ptxas_of(functions, f"attn_tf32x3_kernelILi{nacc}ELi{keys}"
+                                   f"ELi{rows}E")
+    types = "".join("13__nv_bfloat16" if t.element_size() == 2 else "f"
+                    for t in (q, v))
+    hdv = v.shape[-1]
+    nacc = 16 if hdv <= 64 else 32 if hdv <= 128 else 64
+    return ptxas_of(functions, f"attn_kernelI{types}Li{nacc}E")
+
+
+def train_attention_fields(torch, functions, B, Tq, Tk, H, Hkv, hd, hdv,
+                           causal, scale):
     """flash attention at a shape of the training path (fp32: the
-    ``cuda_cores`` instance), against its plain version and SDPA (the
-    backend it took named), timed with both, beside its bound at FP32 67
-    TFLOP/s."""
+    ``tf32x3`` instance), against its plain version and SDPA (the backend
+    it took named), timed with both and with the ``cuda_cores`` instance
+    that took fp32 before it (forced, on the same inputs), beside two
+    bounds: FP32 67 TFLOP/s, and the three TF32 products of 3xTF32 at 495
+    TFLOP/s; each instance's registers and spills."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -4541,6 +4619,7 @@ def train_attention_fields(torch, B, Tq, Tk, H, Hkv, hd, hdv, causal,
     v = _randn(torch, gen, (B, Tk, Hkv, hdv), torch.float32)
     kw = dict(causal=causal, scale=scale)
     got = flash_attention_cuda(q, k, v, **kw)
+    old = flash_attention_cuda(q, k, v, route="cuda_cores", **kw)
     want = flash_attention_plain(q, k, v, **kw)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa_kw = dict(is_causal=causal, scale=scale, enable_gqa=H != Hkv)
@@ -4551,7 +4630,10 @@ def train_attention_fields(torch, B, Tq, Tk, H, Hkv, hd, hdv, causal,
     n_bytes = 4 * B * (Tq * H * (hd + hdv) + Tk * Hkv * (hd + hdv))
     n_ops = 2 * (hd + hdv) * H * B * attention_pairs(Tq, Tk, causal, 0)
     bound, by = bound_ms(n_bytes, n_ops, FP32_OPS_PER_S)
-    return {"instance": attention_instance(q, k, v),
+    bound3, by3 = bound_ms(n_bytes, 3 * n_ops, TF32_TC_OPS_PER_S)
+    instance = attention_instance(q, k, v)
+    return {"instance": instance,
+            "function": prefill_function(functions, instance, q, v),
             "shape": [B, Tq, H, Hkv, hd] + ([hdv] if hdv != hd else [])
             + ([Tk] if Tk != Tq else []),
             "causal": causal, "scale": scale, "dtype": "float32",
@@ -4559,15 +4641,23 @@ def train_attention_fields(torch, B, Tq, Tk, H, Hkv, hd, hdv, causal,
             "library_max_abs_diff": _err(got, sdpa().transpose(1, 2)),
             "ms": device_ms(torch, lambda: flash_attention_cuda(
                 q, k, v, **kw), 10),
+            "cuda_cores_ms": device_ms(torch, lambda: flash_attention_cuda(
+                q, k, v, route="cuda_cores", **kw), 10),
+            "cuda_cores_max_abs_err": _err(old, want),
+            "cuda_cores_function": prefill_function(functions, "cuda_cores",
+                                                    q, v),
             "plain_ms": device_ms(torch, lambda: flash_attention_plain(
                 q, k, v, **kw), 2),
             "library": "F.scaled_dot_product_attention", **backend,
             "library_ms": device_ms(torch, sdpa, 10),
             "bound_ms": bound, "bound_by": by,
-            "bound_rate": "FP32 67 TFLOP/s; HBM 3.35 TB/s"}
+            "bound_rate": "FP32 67 TFLOP/s; HBM 3.35 TB/s",
+            "bound_ms_tf32x3": bound3, "bound_by_tf32x3": by3,
+            "bound_rate_tf32x3": "3 x the operations at TF32 495 TFLOP/s; "
+                                 "HBM 3.35 TB/s"}
 
 
-def add_train_fields(torch, entries, trained):
+def add_train_fields(torch, entries, trained, functions):
     """Each model kernel's launches on the training path beside its
     serving ones: attention's in the launcher's clean run (phase 9 (b)),
     with its time at that shape, and at each shape the checks of
@@ -4576,24 +4666,27 @@ def add_train_fields(torch, entries, trained):
     Returns whether the training instances agree with the plain version
     and were launched."""
     by_name = {"rglru_scan": f"{RG}:rglru_scan", "wkv6": f"{RWKV}:wkv6"}
+
+    def good(f):      # both fp32 instances agree, the tf32x3 one was timed
+        return (f["instance"].startswith("tf32x3<")
+                and f["max_abs_err"] <= TOL["float32"]
+                and f["cuda_cores_max_abs_err"] <= TOL["float32"])
     ok = True
     for e in entries:
         if e["name"] == "flash_attention":
             att = trained["flash_attention"]
             B, T, H, Hkv, hd = att["shape"]
             e["train"] = dict(att, **train_attention_fields(
-                torch, B, T, T, H, Hkv, hd, hd, True, None))
-            ok &= (e["train"]["max_abs_err"] <= TOL["float32"]
-                   and att["launches"] > 0)
+                torch, functions, B, T, T, H, Hkv, hd, hd, True, None))
+            ok &= good(e["train"]) and att["launches"] > 0
             e["train_checks"] = {}
             for arch in TRAIN_PART_ARCHS:
                 shapes = trained["check_shapes"].get(arch, {})
                 e["train_checks"][_SUB_ENTRY[arch]] = fields = [
                     dict(launches=n, where="phase 9 (a)",
-                         **train_attention_fields(torch, *key))
+                         **train_attention_fields(torch, functions, *key))
                     for key, n in shapes.items()]
-                ok &= bool(fields) and all(
-                    f["max_abs_err"] <= TOL["float32"] for f in fields)
+                ok &= bool(fields) and all(good(f) for f in fields)
         elif e["name"] in by_name and e.get("instance") == "chunked":
             e["train"] = {"launches": trained["checks"].get(
                 by_name[e["name"]], 0), "route": "chunked",
@@ -4820,6 +4913,28 @@ PARTS = {"slice": _part_slice, "slice mcb8": phase_slice_mcb8,
 PART_ENV = {"train families": {"OMP_WAIT_POLICY": "PASSIVE"}}
 
 
+class card_turn:
+    """Within its block, this process has the card's memory to itself
+    among the parts: an exclusive lock on the file ``run_parts`` names in
+    ``CHIP_SMOKE_CARD_LOCK`` (no lock outside ``run_parts``).  The
+    families' card steps (50-74 GB of the card's 80 at their optimizer
+    step) and the kill -9 drill, whose restarted server process allocates
+    afresh, take turns under it, so the drill's server never meets a
+    nearly full card."""
+
+    def __enter__(self):
+        import fcntl
+        path = os.environ.get("CHIP_SMOKE_CARD_LOCK")
+        self.f = open(path, "w") if path else None
+        if self.f:
+            fcntl.flock(self.f, fcntl.LOCK_EX)
+        return self
+
+    def __exit__(self, *exc):
+        if self.f:
+            self.f.close()          # closing releases the lock
+
+
 def run_parts():
     """Starts ``chip_smoke.py --part <name>`` for every part of
     :data:`PARTS`, all together, each with its lines and errors going to
@@ -4832,6 +4947,7 @@ def run_parts():
 
     results, failed, procs = {}, [], {}
     with tempfile.TemporaryDirectory() as tmp:
+        lock = {"CHIP_SMOKE_CARD_LOCK": os.path.join(tmp, "card.lock")}
         try:
             for i, name in enumerate(PARTS):
                 base = os.path.join(tmp, str(i))
@@ -4842,7 +4958,8 @@ def run_parts():
                          "--part", name, "--result", base + ".pkl",
                          "--start", repr(_START)],
                         stdout=out, stderr=err, cwd=ROOT,
-                        env={**os.environ, **PART_ENV.get(name, {})}))
+                        env={**os.environ, **lock,
+                             **PART_ENV.get(name, {})}))
             for name, (base, proc) in procs.items():
                 rc = proc.wait()
                 sys.stdout.write(Path(base + ".out").read_text())
@@ -4956,7 +5073,8 @@ def main() -> int:
         wkv, wkv_ok = wkv6_entries(torch, np, *served[RWKV][:3],
                                    libraries["wkv6"]["ptxas"])
         line = {"kernels": alloc_entries + serve_entries + wkv}
-        train_ok = add_train_fields(torch, line["kernels"], trained)
+        train_ok = add_train_fields(torch, line["kernels"], trained,
+                                    libraries["attention"]["ptxas"])
         ok = alloc_ok and serve_ok and wkv_ok and train_ok
     except Exception as exc:  # noqa: BLE001 — reported, then a failing exit
         traceback.print_exc()

@@ -7,11 +7,14 @@
 // plain PyTorch versions are repro_torch.models.layers.chunked_attention
 // and decode_attention.  Every query row attends a contiguous key interval
 // [lo, hi): the causal mask, the sliding window, q_offset and a cache's
-// valid length are all such intervals.  A row with no key gives 0.
+// valid length are all such intervals.  A prompt row the masks leave
+// with no key attends to every key with equal weight, as in the reference
+// (its mask is a finite -1e30, so such a row's softmax is uniform); a
+// decode over an empty cache gives 0.
 //
-// Prefill (flash_attention) has two instances, decode (flash_decode) two,
-// and the decode splits a second pass; the wrappers choose the instance by
-// types and head dims alone (attention_route, decode_route).
+// Prefill (flash_attention) has three instances, decode (flash_decode)
+// two, and the decode splits a second pass; the wrappers choose the
+// instance by types and head dims alone (attention_route, decode_route).
 //
 // 1. attn_wgmma_kernel — prefill with bf16 q, k and v whose head dims are
 //    multiples of 16 up to 256 (every served shape).  Bound on the H100 by
@@ -51,11 +54,74 @@
 //    - Masks: the block walks the union of its rows' intervals in 64-key
 //      tiles; a tile inside every valid row's interval takes the unmasked
 //      path, the others mask the S fragment by [lo, hi) per row.
-// 2. attn_kernel — the general prefill instance (fp32, mixed types, head
-//    dims that wgmma does not take): 64 rows a block, 32-key tiles widened
-//    to fp32 in shared memory, fp32 FMAs on the CUDA cores, 4 threads a
-//    row.  The phase-6 model check runs it in fp32.
-// 3. decode_mma_kernel — decode with a bf16 cache, hd a multiple of 16 and
+// 2. attn_tf32x3_kernel — prefill with fp32 q, k and v whose head dims
+//    are multiples of 8 up to 256 (the fp32 calls of the reference's
+//    flash_attention, def :78, pallas_call :110): the training forward
+//    (and its remat recompute) of every family, and the fp32 model
+//    checks.  Bound on the H100 by operations, e.g. 8.05 GFLOP against
+//    42 MB at SmolLM-360M's (4, 1024, 15 over 5 heads of 64), so fp32 FMAs
+//    on the CUDA cores (67 TFLOP/s) cannot go below 0.120 ms.  Design:
+//    - Both products on the tensor cores in 3xTF32: every fp32 operand is
+//      split as hi = x rounded to TF32 and lo = x - hi, and a product is
+//      the fp32 sum of lo hi, hi lo and then hi hi, each an mma.sync
+//      m16n8k8 tf32 with fp32 accumulation.  The pair holds x to ~2^-21,
+//      so the products keep fp32's accuracy; one TF32 product keeps ~3
+//      decimal digits and misses the fp32 tolerance 2e-5.  Three products
+//      at TF32's 495 TFLOP/s put the floor at a third of that rate.  hi
+//      is rounded by integer operations on the bits (to nearest, ties
+//      away, as cvt.rna.tf32 rounds, which runs on the slower conversion
+//      pipe), and lo goes in as it is: the tensor core reads its top 19
+//      bits.  wgmma takes tf32 operands K-major only (only the
+//      16-bit types have the transpose flag), so O += P V would need
+//      every V tile transposed in shared memory; mma.sync reads V as it
+//      lies.
+//    - A warp owns 16 query rows (an m-tile) or 32 (two m-tiles, so every
+//      K and V fragment it splits feeds two products), and the split is a
+//      large part of the instructions.  Q stays fp32 in shared memory and
+//      is split as its fragments are read (split in registers at hd 192
+//      it would take 192 a thread).  S = Q K^T for a warp's keys of a
+//      tile is 4 registers an 8-key tile; O takes NACC registers a thread
+//      and m-tile, hdv / 2 rounded up to 32, 64 or 128.  P feeds P V from the S registers with no
+//      shuffle: S's fragment holds keys 2t and 2t + 1 of an 8-key step
+//      where P V's A fragment wants columns t and t + 4, so the step's
+//      keys are taken in the order 0, 2, 4, 6, 1, 3, 5, 7 — V's B fragment
+//      reads rows 2t and 2t + 1 — and the sum over keys does not depend
+//      on their order.
+//    - The block's shape follows the grid (tf32x3_tile in the wrapper
+//      picks it): 128 rows, 4 warps of 32, where hdv <= 64 and the grid
+//      holds 1.5 blocks an SM; else 64 rows, 8 warps, two on each 16 rows,
+//      each taking half of every key tile, where it holds 2; else 32
+//      rows, 8 warps, four on each 16 rows, a quarter of the keys each.
+//      The warps that share rows meet at the end in shared memory, where
+//      the first weighs the others' (m, l, O) in, in a fixed order.  The
+//      key split gives a small causal grid the warps it lacks: Qwen1.5-
+//      MoE's (2, 256, 16 over 16 heads of 128) makes only 128 blocks of
+//      64 rows for 132 SMs, its heaviest 4 key tiles long.  32-row blocks
+//      pay there only with the split: as 2 warps, each on 16 rows of its
+//      own, they leave the longest chain a warp's whole key range, and
+//      in trials on the H100 they ran slower than 64-row blocks.
+//    - K and V tiles come through a two-stage cp.async ring (16-byte
+//      copies, 4-byte ones when a base is not 16-byte aligned; rows past
+//      Tk zero-filled), K and V as separate groups, so the next tile lands
+//      while the current one's products run and P V waits only for V.
+//      Row pitches are hd + 4 and hdv + 4 floats (4 mod 8): the fragment
+//      reads of 8 rows x 4 columns (Q, K) and of 4 key pairs x 8 columns
+//      (V) hit 32 distinct banks.  A tile is 64 keys where Q and two
+//      stages fit in a block's 227 KB, else 32: SmolLM's 128-row block
+//      takes 102 KB, MLA's 192 over 128 at 64 rows 213 KB.
+//    - Softmax, masks and order as in attn_wgmma_kernel: the online
+//      softmax in fp32 registers (exp2, the scale folded into log2 e),
+//      row statistics by quad shuffles, the [lo, hi) masks of row_keys /
+//      block_keys, a tile inside every row's interval unmasked.  Blocks
+//      are ordered heaviest first over (query tile, batch, head), so the
+//      causal tail does not end the launch alone.
+//    - No atomics, and every sum in a fixed order: a call's output is the
+//      same bit for bit from run to run.
+// 3. attn_kernel — the general prefill instance (mixed types, head dims
+//    that neither tensor-core instance takes): 64 rows a block, 32-key
+//    tiles widened to fp32 in shared memory, fp32 FMAs on the CUDA cores,
+//    4 threads a row.
+// 4. decode_mma_kernel — decode with a bf16 cache, hd a multiple of 16 and
 //    hdv of 8 (every served shape; q fp32 or bf16).  Bound by bytes: the
 //    valid cache rows are read once per KV head (6 MB at four
 //    RecurrentGemma slots of ~1,400 tokens, 1.6 us at 3.35 TB/s).  Design:
@@ -83,7 +149,7 @@
 //      library, for a launch of a few microseconds.  It reads each split's
 //      (m, l) once, weighs the splits that hold keys in shared memory and
 //      spreads the sum over (request, head, 64 columns) blocks.
-// 4. decode_kernel — the general decode instance (an fp32 cache, head dims
+// 5. decode_kernel — the general decode instance (an fp32 cache, head dims
 //    the mma instance does not take): the same blocks, splits and ring,
 //    the cache in its own type; scores by 8 lanes a key (hd/8 dims each, a
 //    3-step shuffle) for two heads at a time, q fp32 in shared memory; P V
@@ -181,41 +247,45 @@ struct AttnArgs {
   float scale;
 };
 
-// The key interval [lo, hi) of query row qi (empty when hi <= lo).
-__device__ __forceinline__ void row_keys(const AttnArgs& a, int qi, int* lo,
+// The key interval [lo, hi) of query row qi.  A row that the masks leave
+// with no key attends to every key [0, Tk) with equal weight, as the
+// reference's finite mask (-1e30 on every score of the row) makes it;
+// the return value says so, and the kernels then replace the row's
+// scores by 0.
+__device__ __forceinline__ bool row_keys(const AttnArgs& a, int qi, int* lo,
                                          int* hi) {
   const int pos = a.q_offset + qi;
   int l = a.window > 0 ? pos - a.window + 1 : 0;
   l = l > 0 ? l : 0;
-  int h = a.causal ? (pos + 1 < a.Tk ? pos + 1 : a.Tk) : a.Tk;
-  *lo = l;
-  *hi = h > l ? h : l;
+  const int h = a.causal ? (pos + 1 < a.Tk ? pos + 1 : a.Tk) : a.Tk;
+  if (h > l) {
+    *lo = l;
+    *hi = h;
+    return false;
+  }
+  *lo = 0;
+  *hi = a.Tk;
+  return true;
 }
 
 // The union [kmin, kmax) of the intervals of the valid rows q0 .. q0 +
 // rows - 1, and [lo_max, hi_min): the keys inside every valid row's
-// interval (empty when a row has none).  Row intervals only move right as
-// the row grows, so the ends of the row range decide them.
+// interval (empty when a row has no key of its own).  A row's interval
+// only moves right as the row grows, by at most one key at its start, so
+// the intervals of consecutive rows overlap; rows with no key of their
+// own (all keys) can only lead or end the range.  So the ends of the row
+// range decide both.
 __device__ __forceinline__ void block_keys(const AttnArgs& a, int q0,
                                            int rows, int* kmin, int* kmax,
                                            int* lo_max, int* hi_min) {
   const int last = (q0 + rows < a.Tq ? q0 + rows : a.Tq) - 1;
   int lo0, hi0, lo1, hi1;
-  row_keys(a, q0, &lo0, &hi0);
-  row_keys(a, last, &lo1, &hi1);
-  int lo = a.Tk, hi = 0;
-  for (int qi = q0; qi <= last; ++qi) {   // rows with no key are skipped
-    int l, h;
-    row_keys(a, qi, &l, &h);
-    if (h > l) {
-      lo = l < lo ? l : lo;
-      hi = h > hi ? h : hi;
-    }
-  }
-  *kmin = lo;
-  *kmax = hi;
+  const bool uniform0 = row_keys(a, q0, &lo0, &hi0);
+  const bool uniform1 = row_keys(a, last, &lo1, &hi1);
+  *kmin = lo0 < lo1 ? lo0 : lo1;
+  *kmax = hi0 > hi1 ? hi0 : hi1;
   *lo_max = lo1;
-  *hi_min = (hi0 > lo0 && hi1 > lo1) ? hi0 : lo1;
+  *hi_min = (uniform0 || uniform1) ? lo1 : hi0;
 }
 
 // kRows query rows a block, 4 threads a row.
@@ -224,7 +294,6 @@ __global__ void __launch_bounds__(4 * kRows)
 attn_kernel(AttnArgs a) {
   constexpr int THREADS = 4 * kRows;
   extern __shared__ __align__(16) float smem[];
-  __shared__ int blk_lo, blk_hi;
 
   const TQ* __restrict__ q = static_cast<const TQ*>(a.q);
   const TKV* __restrict__ k = static_cast<const TKV*>(a.k);
@@ -244,10 +313,8 @@ attn_kernel(AttnArgs a) {
   const int b = blockIdx.z, h = blockIdx.y;
   const int hkv = h / (a.H / a.Hkv);
   const int q0 = blockIdx.x * kRows;
-  if (tid == 0) {
-    int lo_max, hi_min;
-    block_keys(a, q0, kRows, &blk_lo, &blk_hi, &lo_max, &hi_min);
-  }
+  int kmin, kmax, lo_max, hi_min;
+  block_keys(a, q0, kRows, &kmin, &kmax, &lo_max, &hi_min);
   const int n_valid = a.Tq - q0 < kRows ? a.Tq - q0 : kRows;
   const long long q_row = static_cast<long long>(a.H) * hd;
   load_tile<THREADS>(Qs, qw, q + (static_cast<long long>(b) * a.Tq + q0) *
@@ -258,14 +325,13 @@ attn_kernel(AttnArgs a) {
   const int r = tid >> 2;          // this thread's row
   const int sub = tid & 3;         // its quarter of the row's keys/columns
   int lo = 0, hi = 0;
-  if (r < n_valid) row_keys(a, q0 + r, &lo, &hi);
+  const bool uniform = r < n_valid && row_keys(a, q0 + r, &lo, &hi);
   const long long k_base = static_cast<long long>(b) * a.Tk * a.Hkv * hd
                            + static_cast<long long>(hkv) * hd;
   const long long v_base = static_cast<long long>(b) * a.Tk * a.Hkv * hdv
                            + static_cast<long long>(hkv) * hdv;
   const long long k_row = static_cast<long long>(a.Hkv) * hd;
   const long long v_row = static_cast<long long>(a.Hkv) * hdv;
-  const int kmin = blk_lo, kmax = blk_hi;
 
   float m = kNegInf, l = 0.0f;
   float acc[NACC];
@@ -294,7 +360,7 @@ attn_kernel(AttnArgs a) {
     for (int j = 0; j < kKeys / 4; ++j) {
       const int key = k0 + sub + 4 * j;
       const bool ok = key >= lo && key < hi;
-      s[j] = ok ? s[j] * a.scale : kNegInf;
+      s[j] = ok ? (uniform ? 0.0f : s[j] * a.scale) : kNegInf;
       mt = ok ? fmaxf(mt, s[j]) : mt;
     }
     mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
@@ -574,11 +640,12 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lane = tid & 31;
   const int r0 = (tid >> 5) * 16 + (lane >> 2);    // rows r0 and r0 + 8
   int lo[2], hi[2];
+  bool uniform[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int qi = q0 + r0 + 8 * rr;
     lo[rr] = hi[rr] = 0;
-    if (qi < a.Tq) row_keys(a, qi, &lo[rr], &hi[rr]);
+    uniform[rr] = qi < a.Tq && row_keys(a, qi, &lo[rr], &hi[rr]);
   }
   float o[NVP][32];
 #pragma unroll
@@ -622,7 +689,8 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       float x = sc[i] * w.scale_log2;
       if (!full) {
         const int key = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
-        x = (key >= lo[rr] && key < hi[rr]) ? x : -CUDART_INF_F;
+        x = (key >= lo[rr] && key < hi[rr]) ? (uniform[rr] ? 0.0f : x)
+                                            : -CUDART_INF_F;
       }
       sc[i] = x;
       mt[rr] = fmaxf(mt[rr], x);
@@ -1579,30 +1647,508 @@ int launch_decode_types(const DecodeArgs& a, int mma, int B,
   return err != 0 ? err : launch_combine<TQ>(a, B, st);
 }
 
+// ========================================================================
+// fp32 prefill instance: 3xTF32 mma.sync on the tensor cores
+// ========================================================================
+constexpr int kTfStages = 2;                // K/V tiles in the ring
+constexpr size_t kTfMaxSmem = 232448;      // a block's most shared memory
+
+// A block of ROWS query rows of one (batch, head): 128 rows are 4 warps of
+// 32 (two 16-row m-tiles a warp, so each K and V fragment split feeds two
+// products); 64 rows are 8 warps, two on each 16 rows, each taking half of
+// every key tile; 32 rows are 8 warps, four on each 16 rows, a quarter of
+// the keys each.
+template <int ROWS>
+struct TfShape {
+  static constexpr int MT = ROWS == 128 ? 2 : 1;        // m-tiles a warp
+  static constexpr int KS = ROWS == 128 ? 1 : ROWS == 64 ? 2 : 4;
+  static constexpr int RG = ROWS / (16 * MT);           // row groups
+  static constexpr int WARPS = RG * KS;
+  static constexpr int THREADS = 32 * WARPS;
+};
+
+// Row pitches (floats) and offsets of a block's shared memory: Q, then
+// the stages, each KT rows of K then KT rows of V.
+struct TfLayout {
+  int qp, kp, vp;
+  size_t ring, stage, bytes;
+};
+
+__host__ __device__ inline TfLayout tf_layout(int rows, int hd, int hdv,
+                                              int kt) {
+  TfLayout L;
+  L.qp = hd + 4;
+  L.kp = hd + 4;
+  L.vp = hdv + 4;
+  L.ring = static_cast<size_t>(rows) * L.qp;
+  L.stage = static_cast<size_t>(kt) * (L.kp + L.vp);
+  L.bytes = (L.ring + kTfStages * L.stage) * sizeof(float);
+  return L;
+}
+
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Starts the copy of `rows` fp32 rows of `width` (row stride `stride`)
+// into shared memory (pitch `pitch`); rows at or past `valid` are
+// zero-filled (their copies read nothing: `safe` stands in for their
+// address).  16 bytes a copy when `vec`, else 4.
+template <int THREADS>
+__device__ __forceinline__ void tf_issue_rows(float* dst, int pitch,
+                                              const float* src,
+                                              long long stride, int rows,
+                                              int valid, int width, bool vec,
+                                              const float* safe) {
+  if (vec) {
+    const int per_row = width / 4;
+    for (int idx = threadIdx.x; idx < rows * per_row; idx += THREADS) {
+      const int r = idx / per_row, c = (idx - r * per_row) * 4;
+      const bool ok = r < valid;
+      cp_async16_zfill(dst + r * pitch + c, ok ? src + r * stride + c : safe,
+                       ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * width; idx += THREADS) {
+      const int r = idx / width, c = idx - r * width;
+      const bool ok = r < valid;
+      cp_async4_zfill(dst + r * pitch + c, ok ? src + r * stride + c : safe,
+                      ok);
+    }
+  }
+}
+
+// x as a TF32 pair: hi = x rounded to TF32 (nearest, ties away from zero,
+// as cvt.rna does, by integer operations on the bits: cvt runs on a slow
+// pipe), lo = x - hi, exact in fp32, of which the tensor core reads the
+// top 19 bits (rounding toward zero).  hi + lo holds x to ~2^-21.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, fp32) += A (16 x 8, tf32, row-major) B (8 x 8, tf32).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the small products first, fp32 accumulation.
+__device__ __forceinline__ void mma3_tf32(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// NACC: O registers a thread and m-tile (hdv <= 2 NACC); KT: keys a tile;
+// ROWS: query rows a block (TfShape).  Blocks heaviest first.
+template <int NACC, int KT, int ROWS>
+__global__ void __launch_bounds__(TfShape<ROWS>::THREADS)
+attn_tf32x3_kernel(AttnArgs a, int B, float scale_log2) {
+  using S = TfShape<ROWS>;
+  constexpr int MT = S::MT, KS = S::KS, RG = S::RG, THREADS = S::THREADS;
+  constexpr int KP = KT / KS;      // keys a warp takes of a tile
+  constexpr int NT = NACC / 4;     // 8-column tiles of O
+  constexpr int ST = KP / 8;       // 8-key tiles of S
+  extern __shared__ __align__(16) float tf_smem[];
+  const TfLayout L = tf_layout(ROWS, a.hd, a.hdv, KT);
+  float* Qs = tf_smem;
+  float* ring = tf_smem + L.ring;
+
+  // heaviest first: the last query tiles of every (batch, head)
+  const int ntq = (a.Tq + ROWS - 1) / ROWS;
+  const int per_tile = a.H * B;
+  const int qt = ntq - 1 - static_cast<int>(blockIdx.x) / per_tile;
+  const int bh = static_cast<int>(blockIdx.x) % per_tile;
+  const int b = bh / a.H, h = bh % a.H;
+  const int hkv = h / (a.H / a.Hkv);
+  const int q0 = qt * ROWS;
+  int kmin, kmax, lo_max, hi_min;
+  block_keys(a, q0, ROWS, &kmin, &kmax, &lo_max, &hi_min);
+  const int ntiles = kmax > kmin ? (kmax - kmin + KT - 1) / KT : 0;
+
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const long long q_row = static_cast<long long>(a.H) * a.hd;
+  const long long k_row = static_cast<long long>(a.Hkv) * a.hd;
+  const long long v_row = static_cast<long long>(a.Hkv) * a.hdv;
+  const float* qg = q + (static_cast<long long>(b) * a.Tq + q0) * q_row +
+                    static_cast<long long>(h) * a.hd;
+  const float* kg = k + static_cast<long long>(b) * a.Tk * k_row +
+                    static_cast<long long>(hkv) * a.hd;
+  const float* vg = v + static_cast<long long>(b) * a.Tk * v_row +
+                    static_cast<long long>(hkv) * a.hdv;
+  // hd and hdv are multiples of 8: every row starts 32 bytes from the last
+  const bool vec = ((reinterpret_cast<unsigned long long>(q) |
+                     reinterpret_cast<unsigned long long>(k) |
+                     reinterpret_cast<unsigned long long>(v)) & 15) == 0;
+
+  // tile t's K and V as two groups (empty past the last tile)
+  auto issue_tile = [&](int t) {
+    if (t < ntiles) {
+      const int k0 = kmin + t * KT;
+      float* ks = ring + (t % kTfStages) * L.stage;
+      tf_issue_rows<THREADS>(ks, L.kp, kg + k0 * k_row, k_row, KT, a.Tk - k0,
+                             a.hd, vec, k);
+      cp_async_commit();
+      tf_issue_rows<THREADS>(ks + KT * L.kp, L.vp, vg + k0 * v_row, v_row, KT,
+                             a.Tk - k0, a.hdv, vec, v);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_commit();
+  };
+  // Q joins the first tile's K group
+  tf_issue_rows<THREADS>(Qs, L.qp, qg, q_row, ROWS, a.Tq - q0, a.hd, vec, q);
+  issue_tile(0);
+  issue_tile(1);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int part = warp / RG;               // the warp's share of the keys
+  const int rw = (warp % RG) * 16 * MT;     // its first row
+  // m-tile mt, rows rw + 16 mt + g (rr 0) and + 8 (rr 1)
+  int lo[MT][2], hi[MT][2];
+  bool uniform[MT][2];
+  float o[MT][NT][4], m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qi = q0 + rw + 16 * mt + g + 8 * rr;
+      lo[mt][rr] = hi[mt][rr] = 0;
+      uniform[mt][rr] =
+          qi < a.Tq && row_keys(a, qi, &lo[mt][rr], &hi[mt][rr]);
+      m[mt][rr] = kNegInf;
+      l[mt][rr] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[mt][j][i] = 0.0f;
+    }
+  }
+  const int ksteps = a.hd / 8, n_vt = a.hdv / 8;
+  const float* qa = Qs + (rw + g) * L.qp + tg;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const float* ks = ring + (t % kTfStages) * L.stage + part * KP * L.kp;
+    const float* vs = ring + (t % kTfStages) * L.stage + KT * L.kp +
+                      part * KP * L.vp;
+    const int kt0 = kmin + t * KT;          // the tile's first key
+    const int k0 = kt0 + part * KP;         // the warp's first key
+    cp_async_wait<3>();          // Q and this tile's K have landed
+    __syncthreads();
+
+    // S = Q K^T: A is 16 rows x 8 dims of Q, B 8 dims x 8 keys of K
+    float s[MT][ST][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < ST; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[mt][j][i] = 0.0f;
+      }
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < ksteps; ++kk) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* qk = qa + 16 * mt * L.qp + kk * 8;
+        split_tf32(qk[0], ah[mt][0], al[mt][0]);
+        split_tf32(qk[8 * L.qp], ah[mt][1], al[mt][1]);
+        split_tf32(qk[4], ah[mt][2], al[mt][2]);
+        split_tf32(qk[8 * L.qp + 4], ah[mt][3], al[mt][3]);
+      }
+      const float* kb = ks + g * L.kp + kk * 8 + tg;
+#pragma unroll
+      for (int j = 0; j < ST; ++j) {
+        uint32_t bh[2], bl[2];
+        split_tf32(kb[j * 8 * L.kp], bh[0], bl[0]);
+        split_tf32(kb[j * 8 * L.kp + 4], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma3_tf32(s[mt][j], ah[mt], al[mt], bh, bl);
+        }
+      }
+    }
+
+    // online softmax on the fragment: s[mt][j][i] is row rw + 16 mt + g +
+    // 8 (i / 2), key k0 + 8 j + 2 tg + i % 2
+    const bool full = kt0 >= lo_max && kt0 + KT <= hi_min;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int j = 0; j < ST; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int rr = i >> 1;
+          float x = s[mt][j][i] * scale_log2;
+          if (!full) {
+            const int key = k0 + j * 8 + 2 * tg + (i & 1);
+            x = (key >= lo[mt][rr] && key < hi[mt][rr])
+                    ? (uniform[mt][rr] ? 0.0f : x) : -CUDART_INF_F;
+          }
+          s[mt][j][i] = x;
+          mx[rr] = fmaxf(mx[rr], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        const float m_new = fmaxf(m[mt][rr], mx[rr]);   // finite
+        alpha[rr] = exp2f(m[mt][rr] - m_new);
+        m[mt][rr] = m_new;
+        l[mt][rr] *= alpha[rr];
+      }
+#pragma unroll
+      for (int j = 0; j < ST; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = exp2f(s[mt][j][i] - m[mt][i >> 1]);
+          l[mt][i >> 1] += p;
+          s[mt][j][i] = p;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[mt][j][0] *= alpha[0];
+        o[mt][j][1] *= alpha[0];
+        o[mt][j][2] *= alpha[1];
+        o[mt][j][3] *= alpha[1];
+      }
+    }
+    cp_async_wait<2>();          // this tile's V has landed
+    __syncthreads();
+
+    // O += P V, 8 keys a step in the order 0, 2, 4, 6, 1, 3, 5, 7: A's
+    // column tg is key 2 tg, its column tg + 4 key 2 tg + 1 (the S
+    // fragment as it lies), B's rows the same keys of V
+#pragma unroll
+    for (int kk = 0; kk < ST; ++kk) {
+      uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(s[mt][kk][0], ph[mt][0], pl[mt][0]);
+        split_tf32(s[mt][kk][2], ph[mt][1], pl[mt][1]);
+        split_tf32(s[mt][kk][1], ph[mt][2], pl[mt][2]);
+        split_tf32(s[mt][kk][3], ph[mt][3], pl[mt][3]);
+      }
+      const float* vb = vs + (kk * 8 + 2 * tg) * L.vp + g;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < n_vt) {
+          uint32_t bh[2], bl[2];
+          split_tf32(vb[j * 8], bh[0], bl[0]);
+          split_tf32(vb[j * 8 + L.vp], bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma3_tf32(o[mt][j], ph[mt], pl[mt], bh, bl);
+          }
+        }
+      }
+    }
+    __syncthreads();             // every warp is done with the stage
+    issue_tile(t + kTfStages);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[mt][rr] += __shfl_xor_sync(0xffffffffu, l[mt][rr], 1);
+      l[mt][rr] += __shfl_xor_sync(0xffffffffu, l[mt][rr], 2);
+    }
+  }
+  if constexpr (KS > 1) {
+    // the key parts of each row group meet in shared memory (Q and the
+    // ring are free): parts 1 .. KS - 1 leave their unnormalised rows and
+    // (m, l); part 0 weighs them in, in the parts' order
+    const int pitch = a.hdv + 2;
+    auto part_row = [&](int p, int r) {      // p >= 1
+      return tf_smem + (((p - 1) * RG + warp % RG) * 16 + r) * pitch;
+    };
+    __syncthreads();
+    if (part > 0) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float* row = part_row(part, g + 8 * rr);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j < n_vt) {
+            row[j * 8 + 2 * tg] = o[0][j][2 * rr];
+            row[j * 8 + 2 * tg + 1] = o[0][j][2 * rr + 1];
+          }
+        }
+        if (tg == 0) {
+          row[a.hdv] = m[0][rr];
+          row[a.hdv + 1] = l[0][rr];
+        }
+      }
+    }
+    __syncthreads();
+    if (part > 0) return;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = m[0][rr];
+#pragma unroll
+      for (int p = 1; p < KS; ++p) {
+        mx = fmaxf(mx, part_row(p, g + 8 * rr)[a.hdv]);
+      }
+      const float w0 = exp2f(m[0][rr] - mx);
+      l[0][rr] *= w0;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[0][j][2 * rr] *= w0;
+        o[0][j][2 * rr + 1] *= w0;
+      }
+#pragma unroll
+      for (int p = 1; p < KS; ++p) {
+        const float* row = part_row(p, g + 8 * rr);
+        const float w = exp2f(row[a.hdv] - mx);
+        l[0][rr] += row[a.hdv + 1] * w;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j < n_vt) {
+            o[0][j][2 * rr] += row[j * 8 + 2 * tg] * w;
+            o[0][j][2 * rr + 1] += row[j * 8 + 2 * tg + 1] * w;
+          }
+        }
+      }
+    }
+  }
+
+  // epilogue: normalise and store fp32 pairs
+  float* out = static_cast<float*>(a.o);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float inv = 1.0f / fmaxf(l[mt][rr], 1e-30f);
+      const int qi = q0 + rw + 16 * mt + g + 8 * rr;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < n_vt && qi < a.Tq) {
+          const long long at =
+              ((static_cast<long long>(b) * a.Tq + qi) * a.H + h) * a.hdv +
+              j * 8 + 2 * tg;
+          *reinterpret_cast<float2*>(out + at) =
+              make_float2(o[mt][j][2 * rr] * inv, o[mt][j][2 * rr + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+template <int NACC, int KT, int ROWS>
+int launch_tf32x3_inst(const AttnArgs& a, int B, cudaStream_t stream) {
+  using S = TfShape<ROWS>;
+  // the layout, or the key parts' rows where they take more
+  const size_t combine = sizeof(float) * (S::KS - 1) * S::RG * 16 *
+                         static_cast<size_t>(a.hdv + 2);
+  size_t smem = tf_layout(ROWS, a.hd, a.hdv, KT).bytes;
+  smem = smem > combine ? smem : combine;
+  if (smem > kTfMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_tf32x3_kernel<NACC, KT, ROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      static_cast<long long>((a.Tq + ROWS - 1) / ROWS) * a.H * B;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_tf32x3_kernel<NACC, KT, ROWS>
+      <<<static_cast<unsigned>(blocks), S::THREADS, smem,
+         stream>>>(a, B, a.scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NACC, int ROWS>
+int launch_tf32x3_rows(const AttnArgs& a, int B, int keys,
+                       cudaStream_t stream) {
+  if (keys == 64) return launch_tf32x3_inst<NACC, 64, ROWS>(a, B, stream);
+  if (keys == 32) return launch_tf32x3_inst<NACC, 32, ROWS>(a, B, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int NACC>
+int launch_tf32x3_nacc(const AttnArgs& a, int B, int rows, int keys,
+                       cudaStream_t stream) {
+  if (rows == 64) return launch_tf32x3_rows<NACC, 64>(a, B, keys, stream);
+  if (rows == 32) return launch_tf32x3_rows<NACC, 32>(a, B, keys, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// rows: 128 (hdv <= 64 only), 64 or 32; keys: 64 or 32.
+int launch_tf32x3(const AttnArgs& a, int B, int rows, int keys,
+                  cudaStream_t stream) {
+  if (a.hd % 8 != 0 || a.hdv % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // O registers for hdv <= 64, <= 128 and above (no path has an fp32 hdv
+  // in 129-192, so those calls share the largest instance)
+  if (a.hdv <= 64) {
+    if (rows == 128) return launch_tf32x3_rows<32, 128>(a, B, keys, stream);
+    return launch_tf32x3_nacc<32>(a, B, rows, keys, stream);
+  }
+  if (a.hdv <= 128) return launch_tf32x3_nacc<64>(a, B, rows, keys, stream);
+  return launch_tf32x3_nacc<128>(a, B, rows, keys, stream);
+}
+
 }  // namespace
 
 // q (B, Tq, H, hd), k (B, Tk, Hkv, hd), v (B, Tk, Hkv, hdv), o (B, Tq, H,
 // hdv), all contiguous.  Row i of the queries sits at position
 // q_offset + i; it attends to key j when j <= position (causal) and
-// j > position - window (window > 0).  wgmma != 0 takes the tensor-core
-// instance (bf16 q, k, v; hd and hdv multiples of 16; 16-byte aligned
-// bases), else the CUDA-core one; the caller decides.
+// j > position - window (window > 0).  `instance` picks the kernel, and
+// the caller decides: 0 the CUDA-core one (any types), 1 the wgmma one
+// (bf16 q, k and v; hd and hdv multiples of 16), 2 the 3xTF32 one (fp32
+// q, k and v; hd and hdv multiples of 8) with `rows` query rows a block
+// (128 for hdv <= 64, 64 or 32) and `keys` keys a tile (64 or 32; the
+// other instances ignore both).  A call the chosen instance does not take
+// returns cudaErrorInvalidValue.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int q_bf16,
-    int kv_bf16, int wgmma, int B, int Tq, int Tk, int H, int Hkv, int hd,
-    int hdv, int causal, int window, int q_offset, float scale,
-    void* stream) {
+    int kv_bf16, int instance, int rows, int keys, int B, int Tq, int Tk,
+    int H, int Hkv, int hd, int hdv, int causal, int window, int q_offset,
+    float scale, void* stream) {
   if (B == 0 || Tq == 0 || H == 0) return 0;
   if (hd < 1 || hd > kMaxHead || hdv < 1 || hdv > kMaxHead || Hkv < 1 ||
-      H % Hkv != 0) {
+      H % Hkv != 0 || instance < 0 || instance > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const AttnArgs a{q, k, v, o, Tq, Tk, H, Hkv, hd, hdv, causal, window,
                    q_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wgmma) {
+  if (instance == 1) {
     if (!q_bf16 || !kv_bf16) return static_cast<int>(cudaErrorInvalidValue);
     return launch_wgmma(a, B, st);
+  }
+  if (instance == 2) {
+    if (q_bf16 || kv_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tf32x3(a, B, rows, keys, st);
   }
   const dim3 grid((Tq + kRows - 1) / kRows, H, B);
   if (q_bf16 && kv_bf16)

@@ -46,7 +46,7 @@ LIBRARIES = {
     }),
     "attention": (_CSRC / "attention.cu", _COMMON, {
         "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _F, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
         "repro_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _F, _P],
     }),

@@ -23,8 +23,17 @@ their design does about it:
   ``"wgmma"``): both products on ``wgmma`` (bf16 in, fp32 accumulate, P
   rounded to bf16 before P V), K/V tiles of 64 keys brought by TMA into a
   two-stage ring by a producer warp, 64 query rows of one head a consumer
-  warpgroup.  Every other call (fp32, mixed types, other head dims) takes
-  the CUDA-core instance (``"cuda_cores"``: fp32 FMAs, 32-key tiles).
+  warpgroup.  An fp32 call whose head dims are multiples of 8 up to 256 —
+  every training shape — takes the 3xTF32 instance (``"tf32x3"``): both
+  products as ``mma.sync`` m16n8k8 on the TF32 tensor cores, each operand
+  split in a TF32 high part and a TF32 remainder and three products summed
+  in fp32, so the result keeps fp32's accuracy; K/V tiles of 32 or 64 keys
+  through a two-stage ``cp.async`` ring, blocks of 128, 64 or 32 query
+  rows by the size of the grid (:func:`tf32x3_tile`).  Every other call
+  (mixed types, other head dims) takes the CUDA-core instance
+  (``"cuda_cores"``: fp32 FMAs, 32-key tiles).  A prompt row the masks
+  leave with no key attends to every key with equal weight, as in the
+  reference, whose mask is a finite -1e30.
 * Decode is bound by bytes (the valid cache, read once per KV head).
   Blocks of 256 threads a (request, KV head, key split), sized by
   :func:`_decode_split` to put two blocks on every SM; the cache stays in
@@ -47,7 +56,7 @@ picks the version.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,7 +67,7 @@ __all__ = ["flash_attention", "flash_decode", "flash_attention_plain",
            "flash_attention_cuda",
            "flash_decode_plain", "flash_decode_cuda", "attention_route",
            "decode_route", "attention_instance", "decode_instance",
-           "MAX_HEAD_DIM"]
+           "tf32x3_tile", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 MAX_DECODE_GROUP = 64      # query heads per KV head in one decode block
@@ -99,12 +108,53 @@ def _check(name, q, k, v, q_dims):
 
 def attention_route(q, k, v) -> str:
     """The prefill instance a call takes, by types and head dims alone:
-    ``"wgmma"`` (tensor cores) for bf16 q, k and v whose head dims are
-    multiples of 16 up to 256, else ``"cuda_cores"``."""
-    bf16 = q.dtype == k.dtype == v.dtype == torch.bfloat16
-    dims_ok = all(d % 16 == 0 and 0 < d <= MAX_HEAD_DIM
-                  for d in (q.shape[-1], v.shape[-1]))
-    return "wgmma" if bf16 and dims_ok else "cuda_cores"
+    ``"wgmma"`` (tensor cores, bf16) for bf16 q, k and v whose head dims
+    are multiples of 16 up to 256, ``"tf32x3"`` (tensor cores, 3xTF32) for
+    fp32 q, k and v whose head dims are multiples of 8 up to 256, else
+    ``"cuda_cores"``."""
+    dims = (q.shape[-1], v.shape[-1])
+    if q.dtype == k.dtype == v.dtype == torch.bfloat16 and all(
+            d % 16 == 0 and 0 < d <= MAX_HEAD_DIM for d in dims):
+        return "wgmma"
+    if q.dtype == k.dtype == v.dtype == torch.float32 and all(
+            d % 8 == 0 and 0 < d <= MAX_HEAD_DIM for d in dims):
+        return "tf32x3"
+    return "cuda_cores"
+
+
+#: SMs of an H100, the card the instances are tuned for (and what the
+#: instance of a call on a tensor off the card is named for)
+H100_SMS = 132
+_BLOCK_SMEM = 232448       # shared memory a block may use (227 KB)
+
+
+def tf32x3_tile(B: int, Tq: int, H: int, hd: int, hdv: int,
+                sms: int = H100_SMS) -> Tuple[int, int]:
+    """(query rows a block, keys a K/V tile) of the 3xTF32 instance for a
+    call on a card of ``sms`` SMs.  128 rows (4 warps of 32) where hdv <=
+    64 and the grid holds at least 1.5 blocks an SM; else 64 rows (8
+    warps, two a 16-row group, each taking half of every tile's keys)
+    where it holds at least 2 blocks an SM; else 32 rows (8 warps, four a
+    group, a quarter of the keys each), so a small grid still spreads over
+    the card.  (The two thresholds are where the H100 measured the larger
+    block ahead at the training shapes.)  Keys: 64 where Q and two stages
+    of K and V, row pitches hd + 4 and hdv + 4 floats, fit in a block's
+    227 KB, else 32."""
+    blocks = B * H
+    if hdv <= 64 and 2 * -(-Tq // 128) * blocks >= 3 * sms:
+        rows = 128
+    elif -(-Tq // 64) * blocks >= 2 * sms:
+        rows = 64
+    else:
+        rows = 32
+    smem = 4 * (rows * (hd + 4) + 2 * 64 * (hd + hdv + 8))
+    return rows, 64 if smem <= _BLOCK_SMEM else 32
+
+
+def _sms(t) -> int:
+    if t.is_cuda:
+        return torch.cuda.get_device_properties(t.device).multi_processor_count
+    return H100_SMS
 
 
 def decode_route(q, k_cache, v_cache) -> str:
@@ -117,13 +167,23 @@ def decode_route(q, k_cache, v_cache) -> str:
 
 
 def attention_instance(q, k, v) -> str:
-    """The prefill kernel a call launches: ``"wgmma<NVP>"``, the
+    """The prefill kernel a call launches: ``"wgmma<NVP>"``, the bf16
     tensor-core instance with NVP 64-column V panels
-    (``attn_wgmma_kernel<NVP>``), or ``"cuda_cores"``."""
+    (``attn_wgmma_kernel<NVP>``); ``"tf32x3<NACC,KT,ROWS>"``, the 3xTF32
+    instance with NACC O registers a thread (32 for hdv <= 64, 64 for <=
+    128, else 128), KT-key tiles and ROWS-row blocks
+    (``attn_tf32x3_kernel<NACC, KT, ROWS>``, :func:`tf32x3_tile` for the
+    card q lies on, an H100 off it); or ``"cuda_cores"``."""
     route = attention_route(q, k, v)
-    if route != "wgmma":
-        return route
-    return f"wgmma<{min(4, -(-v.shape[-1] // 64))}>"
+    hdv = v.shape[-1]
+    if route == "wgmma":
+        return f"wgmma<{min(4, -(-hdv // 64))}>"
+    if route == "tf32x3":
+        B, Tq, H, hd = q.shape
+        rows, keys = tf32x3_tile(B, Tq, H, hd, hdv, _sms(q))
+        nacc = 32 if hdv <= 64 else 64 if hdv <= 128 else 128
+        return f"tf32x3<{nacc},{keys},{rows}>"
+    return route
 
 
 def decode_instance(q, k_cache, v_cache) -> str:
@@ -137,15 +197,25 @@ def decode_instance(q, k_cache, v_cache) -> str:
     return f"mma<{mt if mt <= 2 else 4}>"
 
 
+_INSTANCE_ARG = {"cuda_cores": 0, "wgmma": 1, "tf32x3": 2}
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         q_offset: int = 0, scale: Optional[float] = None):
+                         q_offset: int = 0, scale: Optional[float] = None,
+                         route: Optional[str] = None):
     """The CUDA kernel: same function as :func:`flash_attention_plain`.
     Launches the instance :func:`attention_route` names on the current
-    stream; raises on a refused launch."""
+    stream (``route`` forces one: ``"cuda_cores"`` takes every call, the
+    tensor-core ones only theirs); raises on a call the instance does not
+    take or a refused launch."""
     _check("flash_attention_cuda", q, k, v, 4)
-    wgmma = attention_route(q, k, v) == "wgmma"
+    route = attention_route(q, k, v) if route is None else route
+    if route not in _INSTANCE_ARG:
+        raise ValueError(f"unknown attention route {route!r}")
     B, Tq, H, hd = q.shape
     Tk, Hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    rows, keys = (tf32x3_tile(B, Tq, H, hd, hdv, _sms(q))
+                  if route == "tf32x3" else (0, 0))
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty((B, Tq, H, hdv), dtype=q.dtype, device=q.device)
     lib = cuda_lib.load_library("attention")
@@ -153,11 +223,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-        int(wgmma), B, Tq, Tk, H, Hkv, hd, hdv, int(bool(causal)),
-        int(window), int(q_offset), float(scale), stream)
+        _INSTANCE_ARG[route], rows, keys, B, Tq, Tk, H, Hkv, hd, hdv,
+        int(bool(causal)), int(window), int(q_offset), float(scale), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc} (below 0: minus the driver's "
+        raise RuntimeError(f"flash_attention kernel launch failed ({route}): "
+                           f"CUDA error {rc} (below 0: minus the driver's "
                            f"CUresult for a refused tensor map)")
     return out
 

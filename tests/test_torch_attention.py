@@ -190,17 +190,26 @@ def _empty(shape, dtype):
     ("bfloat16", "bfloat16", 128, 128, "wgmma"),
     ("bfloat16", "bfloat16", 256, 256, "wgmma"),
     ("bfloat16", "bfloat16", 256, 128, "wgmma"),
-    ("float32", "float32", 256, 256, "cuda_cores"),
-    ("float32", "float32", 64, 64, "cuda_cores"),
+    ("float32", "float32", 256, 256, "tf32x3"),
+    ("float32", "float32", 64, 64, "tf32x3"),
     ("float32", "bfloat16", 256, 256, "cuda_cores"),
     ("bfloat16", "float32", 128, 128, "cuda_cores"),
     ("bfloat16", "bfloat16", 72, 72, "cuda_cores"),
     ("bfloat16", "bfloat16", 257, 257, "cuda_cores"),
     ("bfloat16", "bfloat16", 128, 72, "cuda_cores"),
+    ("float32", "bfloat16", 64, 64, "cuda_cores"),
+    ("float32", "float32", 60, 60, "cuda_cores"),
+    ("float32", "float32", 64, 60, "cuda_cores"),
+    ("float32", "float32", 264, 264, "cuda_cores"),
+    ("float32", "float32", 72, 72, "tf32x3"),
+    ("float32", "float32", 192, 128, "tf32x3"),
+    ("float32", "float32", 8, 8, "tf32x3"),
 ])
 def test_attention_route_by_types_and_head_dims(qdt, kvdt, hd, hdv, route):
     """bf16 q, k and v with both head dims multiples of 16 up to 256 take
-    the tensor-core instance; everything else the CUDA-core one."""
+    the bf16 tensor-core instance, fp32 q, k and v with both head dims
+    multiples of 8 up to 256 the 3xTF32 one; everything else (mixed types,
+    other head dims) the CUDA-core one."""
     q = _empty((1, 8, 4, hd), qdt)
     k = _empty((1, 8, 1, hd), kvdt)
     v = _empty((1, 8, 1, hdv), kvdt)
@@ -234,12 +243,18 @@ def test_decode_route_by_types_and_head_dims(qdt, kvdt, hd, hdv, route):
     (32, 1, 128, 192, "bfloat16", "wgmma<3>", "mma<2>"),
     (64, 1, 128, 128, "bfloat16", "wgmma<2>", "mma<4>"),
     (48, 1, 64, 64, "bfloat16", "wgmma<1>", "mma<4>"),
-    (32, 8, 128, 128, "float32", "cuda_cores", "cuda_cores"),
+    (32, 8, 128, 128, "float32", "tf32x3<64,64,32>", "cuda_cores"),
+    (10, 1, 256, 256, "float32", "tf32x3<128,32,32>", "cuda_cores"),
+    (16, 16, 96, 192, "float32", "tf32x3<128,64,32>", "cuda_cores"),
+    (32, 8, 60, 60, "float32", "cuda_cores", "cuda_cores"),
 ])
 def test_instances_name_the_template_arguments(H, Hkv, hd, hdv, dt, prefill,
                                                decode):
     """The instance a call launches, as ``ops.routes`` counts it:
-    attn_wgmma_kernel<NVP> with NVP = ceil(hdv / 64), and
+    attn_wgmma_kernel<NVP> with NVP = ceil(hdv / 64),
+    attn_tf32x3_kernel<NACC, KT, ROWS> with NACC 32, 64 or 128 for hdv up
+    to 64, 128 and 256 (the tile by :func:`tf32x3_tile`: 8 query rows give
+    32-row blocks), and
     decode_mma_kernel<TQ, MT> with MT = ceil(group / 16), 3 and 4 both
     taking the 4-tile instance (csrc/attention.cu)."""
     q = _empty((1, 8, H, hd), dt)

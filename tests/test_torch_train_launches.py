@@ -1,8 +1,9 @@
 """The kernel launches of a train step, counted on the CPU, against the
 count ``chip_smoke.py``'s phase 9 (a) expects on the card
-(``train_launches``), for every arch that phase trains, at its reduced
-config, with remat on and 1 or 2 microbatches; and each check's config
-cut from the published one in depth alone.
+(``train_launches``), all on the route it expects (``TRAIN_KERNELS``:
+fp32 attention on ``tf32x3``), for every arch that phase trains, at its
+reduced config, with remat on and 1 or 2 microbatches; and each check's
+config cut from the published one in depth alone.
 
 ``kernels.ops`` is set as on the card: every entry takes the path that
 launches and counts (``_on_cuda`` true), and each launch runs the kernel's
@@ -72,11 +73,11 @@ def test_a_train_step_launches_what_chip_smoke_expects(arch, microbatches,
                                                        launching):
     cfg = configs.get_reduced(arch)
     _one_step(cfg, microbatches)
-    for kernel, instance in SMOKE["TRAIN_KERNELS"][arch].items():
+    for kernel, route in SMOKE["TRAIN_KERNELS"][arch].items():
         n = microbatches * SMOKE["train_launches"](cfg, kernel)
         assert n > 0
         assert ops.launches[kernel] == n, kernel
-        assert dict(ops.routes[kernel]) == {instance: n}, kernel
+        assert SMOKE["route_counts"](ops.routes[kernel]) == {route: n}, kernel
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
