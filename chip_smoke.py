@@ -67,7 +67,12 @@ fails ends the run with exit code 1:
                same-policy branch also against the original session run
                on; launch counts zeroed before and read after each part;
                the host runs of (a) and of each branch alone go to the
-               host checks below;
+               host checks below; (c) a line of its own: (a)'s log as a
+               ``Trace`` saved as npz and JSON and loaded back (equal
+               fingerprints and total work), and ``maxmin_yields_torch``
+               (the one-lane MIN solve) on the card against the host
+               ``maxmin_yields_csr`` on 4 incidences of phase 4's Lublin
+               trace, bit for bit, outside every counted window;
 4d. slice scenarios — scenario grids, chaos and the autotuner on the card,
                at phase 4's size, under GreedyP */OPT=MIN unless said:
                (a) ``run_grid`` on the card over 14 cells — Lublin (phase
@@ -416,6 +421,9 @@ SESSION_POLICY = "GreedyP */OPT=MIN"
 STREAM_JOBS, STREAM_GAP_S = 20_000, 280.0
 STREAM_WINDOW_S, COMPACT_AT = 4 * 86_400.0, 4096
 BRANCH_AT, FAIL_NODES = 500, tuple(range(8))
+#: (c): the host engine's allocation calls on phase 4's Lublin trace whose
+#: incidences the one-lane solve takes (every 200th, 4 of them)
+SURFACE_EVERY, SURFACE_INCIDENCES = 200, 4
 BRANCHES = ("GreedyP */OPT=MIN", "GreedyPM */OPT=MIN", "Greedy */OPT=AVG",
             "GreedyPM */per/OPT=MIN/MINVT=600",
             {"policy": "GreedyPM */per/OPT=MIN/MINVT=600", "period": 1200.0},
@@ -1507,9 +1515,91 @@ def phase_slice_session(torch, np):
         return _slice_session(torch, np, tmp)
 
 
+class _Enough(Exception):
+    """Stops a host engine once it has handed out the incidences wanted."""
+
+
+def session_surface(torch, np, tmp, log_path):
+    """(c) the swf log's ``Trace`` through npz and JSON files, and the
+    one-lane MIN solve on the card against the host solve, bit for bit, on
+    incidences a host engine hands out on phase 4's Lublin trace (seed 0).
+    Prints its line; raises :class:`PhaseFailed` on any difference."""
+    from repro_torch.core.alloc_kernels import maxmin_yields_csr
+    from repro_torch.core.alloc_torch import maxmin_yields_torch
+    from repro_torch.core.yield_alloc import allocate_incidence
+    from repro_torch.sched.engine import Engine, SimParams
+    from repro_torch.workloads.registry import WorkloadSpec, make_trace_ir
+    from repro_torch.workloads.trace import Trace
+
+    t0 = start = time.perf_counter()
+    whole = make_trace_ir(WorkloadSpec("swf", n_jobs=STREAM_JOBS,
+                                       n_nodes=N_NODES,
+                                       params={"path": log_path}))
+    files = {}
+    for fmt, save, load in (("npz", whole.save_npz, Trace.load_npz),
+                            ("json", whole.save_json, Trace.load_json)):
+        path = save(str(Path(tmp) / f"log.{fmt}"))
+        back = load(path)
+        files[fmt] = {"bytes": os.path.getsize(path),
+                      "fingerprint_equal": back.fingerprint
+                      == whole.fingerprint,
+                      "total_work_equal": back.total_work
+                      == whole.total_work}
+    files_wall = time.perf_counter() - t0
+
+    kept, calls = [], [0]
+
+    class Keep:
+        def allocate(self, inc, cols, opt="MIN"):
+            calls[0] += 1
+            if calls[0] % SURFACE_EVERY == 0:
+                kept.append((inc, np.array(cols)))
+                if len(kept) == SURFACE_INCIDENCES:
+                    raise _Enough
+            return allocate_incidence(inc, cols, opt=opt)
+
+    trace = make_trace_ir(WorkloadSpec("lublin", n_jobs=N_JOBS,
+                                       n_nodes=N_NODES, seed=0, load=LOAD))
+    try:
+        Engine(trace, SESSION_POLICY, SimParams(n_nodes=N_NODES),
+               alloc_backend=Keep()).run()
+    except _Enough:
+        pass
+    t0 = time.perf_counter()
+    solves = []
+    for inc, cols in kept:
+        active = np.zeros(inc.width, dtype=bool)
+        active[cols] = True
+        got = maxmin_yields_torch(inc, active, device="cuda")
+        want = maxmin_yields_csr(inc, active)
+        solves.append({"nodes": inc.n_nodes, "width": inc.width,
+                       "running": int(active.sum()),
+                       "bit_equal": got.dtype == want.dtype
+                       and np.array_equal(got.view(np.int64),
+                                          want.view(np.int64))})
+    solve_wall = time.perf_counter() - t0
+    ok = (all(f["fingerprint_equal"] and f["total_work_equal"]
+              for f in files.values())
+          and len(solves) == SURFACE_INCIDENCES
+          and all(x["bit_equal"] for x in solves))
+    emit({"phase": "slice session surface", "ok": ok,
+          "wall_s": time.perf_counter() - start,
+          "trace_files": {"jobs": len(whole), "wall_s": files_wall,
+                          **files},
+          "maxmin_yields_torch": {"trace": "lublin seed 0",
+                                  "policy": SESSION_POLICY,
+                                  "every": SURFACE_EVERY,
+                                  "wall_s": solve_wall,
+                                  "incidences": solves}})
+    if not ok:
+        raise PhaseFailed("a trace file did not load back equal, or the "
+                          "one-lane solve differs from the host's")
+
+
 def _slice_session(torch, np, tmp):
     stream, stream_job = session_stream(torch, np, tmp)
     branches, branch_jobs = session_branches(torch, np, tmp)
+    session_surface(torch, np, tmp, stream_job[1])
 
     def finish(hosts, pool_wall):
         s = stream_check(np, stream, hosts[0])

@@ -117,6 +117,10 @@ class CSRIncidence:
             out = np.empty(self.n_nodes)
         return _seq_matvec(self.indptr, self.indices, self.data, x, out)
 
+    def row_jobs(self, node: int) -> np.ndarray:
+        """Job columns resident on ``node`` (ascending)."""
+        return self.indices[self.indptr[node]:self.indptr[node + 1]]
+
     def scipy_csr(self, cols: np.ndarray):
         """Scipy CSR restricted to ``cols`` (sorted job columns) for the LP
         pass."""

@@ -65,6 +65,7 @@ __all__ = [
     "densify_csr",
     "pad_batch",
     "maxmin_yields_batch",
+    "maxmin_yields_torch",
     "node_usage",
     "node_usage_batch",
     "TorchAllocBackend",
@@ -193,6 +194,20 @@ def maxmin_yields_batch(
     stats["rounds"] = stats.get("rounds", 0) + (
         int(lane_rounds.max()) if lane_rounds.numel() else 0)
     return host[: y.numel()].view(y.shape)
+
+
+def maxmin_yields_torch(inc: CSRIncidence, active: np.ndarray,
+                        device="cuda") -> np.ndarray:
+    """Single-cell convenience (a 1-lane batch on ``device``): full-width
+    yield vector, bit-equal to ``maxmin_yields_csr(inc, active)``."""
+    dev = resolve_device(device)
+    present, weight = densify_csr(inc)
+    act = np.asarray(active, dtype=bool)
+    with _device_work(dev):
+        y = maxmin_yields_batch(torch.from_numpy(present[None]).to(dev),
+                                torch.from_numpy(weight[None]).to(dev),
+                                torch.from_numpy(act[None]).to(dev))
+        return y[0].cpu().numpy()
 
 
 # --------------------------------------------------------------------------- #

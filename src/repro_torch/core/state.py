@@ -202,6 +202,16 @@ class JobView:
         # may run past its estimate, so clamp at zero
         return max(0.0, self.spec.proc_time - self.vt)
 
+    @property
+    def proc_truth(self) -> float:
+        """Executed processing time — engine-side only; policies must keep
+        reading ``spec.proc_time`` (the non-clairvoyant estimate)."""
+        return float(self._st.proc_truth[self.i])
+
+    @property
+    def is_running(self) -> bool:
+        return int(self._st.status[self.i]) == S_RUNNING
+
 
 class RetiredLog:
     """Streaming per-job accumulators for rows evicted by ``compact()``.

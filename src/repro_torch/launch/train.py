@@ -24,6 +24,8 @@ import torch
 from ..configs import get_config, get_reduced
 from ..device import resolve_device
 from ..kernels import ops
+from ..models.config import reduce_config  # noqa: F401
+from ..train import checkpoint as ckpt  # noqa: F401
 from ..train.data import data_for
 from ..train.ft import FailureInjector, run_restartable
 from ..train.optimizer import OptConfig

@@ -43,6 +43,10 @@ from . import blocks, moe
 from .config import (ATTN, DENSE, LOCAL_ATTN, MLA, MOE, RGLRU, RWKV6,
                      BlockSpec, ModelConfig, layer_groups, layer_plan)
 from .layers import norm, sinusoid_pos, uinit
+# the reference's module-level names; the stack itself calls
+# moe.moe_apply, so a wrapper set on the moe module sees every call
+from .layers import split_tree  # noqa: F401
+from .moe import moe_apply, moe_init  # noqa: F401
 
 __all__ = ["init_params", "param_axes", "param_shapes", "group_params",
            "layer_params", "init_cache", "cache_shapes", "slot_view",

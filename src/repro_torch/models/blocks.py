@@ -35,7 +35,9 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from .config import ModelConfig
-from .layers import mlp_apply, mlp_axes, mlp_init, norm, rope, uinit
+from .layers import (chunked_attention, decode_attention,  # noqa: F401
+                     mlp_apply, mlp_axes, mlp_init, norm, rope, split_tree,
+                     uinit)
 
 __all__ = [
     "attn_init", "attn_axes", "attn_cache", "attn_apply",

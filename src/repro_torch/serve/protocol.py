@@ -54,6 +54,19 @@ if TYPE_CHECKING:  # pragma: no cover
 
 SCHEMA = "repro.serve/v1"
 
+#: the JAX package's module-level names that live in the session layer,
+#: resolved on first access so that importing this module loads no torch
+_LAZY = {"JobSpec": "..core.job", "SimSession": "..sched.session",
+         "open_session": "..sched.session"}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name], __package__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 #: ops that advance session state; journaled with a per-session ``seq``
 MUTATING_OPS = frozenset({
     "open", "submit", "step_until", "step", "run", "inject", "period",

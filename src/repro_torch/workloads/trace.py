@@ -10,6 +10,11 @@ is what workload generators produce and what the engine ingests column-wise
 stable across processes and platforms, so two traces with the same jobs
 have the same fingerprint whichever package built them.
 
+A trace saves losslessly as ``npz`` (binary, exact) or JSON (text, exact
+through the float round trip), in the ``repro.trace/v1`` format of the JAX
+package's ``Trace``: a file either package writes loads in the other with
+an equal fingerprint and equal columns.
+
 Validation happens once, vectorized, at construction (the same invariants
 as ``JobSpec.__post_init__``); ``to_specs`` then rebuilds plain validated
 ``JobSpec`` objects.  All columns are read-only; transforms build new
@@ -18,6 +23,7 @@ traces via :meth:`select`.
 from __future__ import annotations
 
 import hashlib
+import json
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -26,7 +32,7 @@ from ..core.job import JobSpec
 
 __all__ = ["Trace", "as_trace", "COLUMNS"]
 
-#: the trace format tag hashed into every fingerprint
+#: the trace format tag hashed into every fingerprint and written into files
 _SCHEMA = "repro.trace/v1"
 
 #: (column name, dtype) — the IR's canonical layout, in fingerprint order
@@ -146,6 +152,11 @@ class Trace:
             object.__setattr__(self, "_fingerprint", fp)
         return fp
 
+    @property
+    def total_work(self) -> float:
+        """Σ n_tasks · proc_time · cpu_need (CPU-seconds across the trace)."""
+        return float((self.n_tasks * self.proc_time * self.cpu_need).sum())
+
     def span(self) -> Tuple[float, float]:
         """(first release, max(release span, 1.0)) — the scenario timebase."""
         if not len(self):
@@ -155,24 +166,8 @@ class Trace:
         return lo, max(hi - lo, 1.0)
 
     # ------------------------------------------------------------------ #
-    # construction boundaries                                             #
+    # spec-list boundary                                                  #
     # ------------------------------------------------------------------ #
-    @classmethod
-    def from_columns(cls, columns: Dict[str, np.ndarray]) -> "Trace":
-        """Build a trace from a ``{column: array}`` mapping — the six
-        :data:`COLUMNS` plus an optional ``proc_truth``.  Values are taken
-        exactly as given, so a trace carried over from another program
-        keeps its fingerprint."""
-        known = {name for name, _ in COLUMNS} | {"proc_truth"}
-        unknown = set(columns) - known
-        if unknown:
-            raise ValueError(f"unknown Trace columns: {sorted(unknown)}")
-        missing = {name for name, _ in COLUMNS} - set(columns)
-        if missing:
-            raise ValueError(f"missing Trace columns: {sorted(missing)}")
-        return cls(**{name: np.asarray(columns[name]) for name, _ in COLUMNS},
-                   proc_truth=columns.get("proc_truth"))
-
     @classmethod
     def from_specs(cls, specs: Iterable[JobSpec]) -> "Trace":
         specs = list(specs)
@@ -246,6 +241,67 @@ class Trace:
         bounds = np.append(starts, len(t))
         for a, b in zip(bounds[:-1], bounds[1:]):
             yield t.select(np.arange(a, b))
+
+    # ------------------------------------------------------------------ #
+    # serialization                                                       #
+    # ------------------------------------------------------------------ #
+    def save_npz(self, path: str) -> str:
+        cols = {name: getattr(self, name) for name, _ in COLUMNS}
+        if self.proc_truth is not None:
+            cols["proc_truth"] = self.proc_truth
+        np.savez_compressed(path, schema=np.array(_SCHEMA), **cols)
+        return path
+
+    @classmethod
+    def load_npz(cls, path: str) -> "Trace":
+        with np.load(path) as z:
+            schema = str(z["schema"]) if "schema" in z else None
+            if schema != _SCHEMA:
+                raise ValueError(f"{path} is not a {_SCHEMA} trace "
+                                 f"(schema: {schema!r})")
+            return cls(**{name: z[name] for name, _ in COLUMNS},
+                       proc_truth=z["proc_truth"] if "proc_truth" in z
+                       else None)
+
+    def to_json_dict(self) -> Dict[str, object]:
+        """Exact text form (floats survive via repr round-trip)."""
+        columns = {name: getattr(self, name).tolist()
+                   for name, _ in COLUMNS}
+        if self.proc_truth is not None:
+            columns["proc_truth"] = self.proc_truth.tolist()
+        return {
+            "schema": _SCHEMA,
+            "n_jobs": len(self),
+            "fingerprint": self.fingerprint,
+            "columns": columns,
+        }
+
+    @classmethod
+    def from_json_dict(cls, payload: Dict[str, object]) -> "Trace":
+        if payload.get("schema") != _SCHEMA:
+            raise ValueError(f"not a {_SCHEMA} payload "
+                             f"(schema: {payload.get('schema')!r})")
+        cols = payload["columns"]
+        truth = cols.get("proc_truth")
+        trace = cls(**{name: np.asarray(cols[name], dtype=dtype)
+                       for name, dtype in COLUMNS},
+                    proc_truth=None if truth is None
+                    else np.asarray(truth, dtype=np.float64))
+        want = payload.get("fingerprint")
+        if want is not None and want != trace.fingerprint:
+            raise ValueError("trace fingerprint mismatch after JSON "
+                             "round-trip (corrupted payload?)")
+        return trace
+
+    def save_json(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.to_json_dict(), f)
+        return path
+
+    @classmethod
+    def load_json(cls, path: str) -> "Trace":
+        with open(path) as f:
+            return cls.from_json_dict(json.load(f))
 
 
 def as_trace(trace_or_specs) -> Trace:

@@ -143,7 +143,7 @@ def test_a_crashing_branch_is_quarantined_or_raises():
     assert _outcomes(host.records)[1] == _outcomes(res.records)[1]
 
 
-def test_branch_seed_is_recorded_and_supervision_is_not_ported():
+def test_branch_seed_is_recorded_and_supervision_matches_the_reference():
     """``branch_seed`` is recorded (with no narrator it reseeds nothing);
     supervision is ported now: ``timeout_s``/``retries`` quarantine a
     failed lane on the device path and supervise worker processes on the

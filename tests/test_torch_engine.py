@@ -11,6 +11,7 @@ Lublin and HPC2N traces; and a bad lane must raise without deadlock.
 import dataclasses
 import threading
 
+import numpy as np
 import pytest
 
 from repro.sched.engine import Engine as RefEngine, SimParams as RefParams
@@ -56,9 +57,10 @@ def test_trace_fingerprint_matches_reference(n_jobs, n_nodes, seed, load):
     got = make_trace_ir(WorkloadSpec("lublin", n_jobs=n_jobs,
                                      n_nodes=n_nodes, seed=seed, load=load))
     assert got.fingerprint == ref.fingerprint
-    carried = Trace.from_columns(
-        {name: getattr(ref, name) for name, _ in COLUMNS})
+    carried = Trace.from_json_dict(ref.to_json_dict())
     assert carried.fingerprint == ref.fingerprint
+    assert all(np.array_equal(getattr(carried, name), getattr(ref, name))
+               for name, _ in COLUMNS)
 
 
 @pytest.mark.parametrize("policy", SLICE_POLICIES)

@@ -1,5 +1,7 @@
-"""The port's public surface against the JAX package's: every name of the
-reference's package facades resolves on the port's counterpart.
+"""The port's public surface against the JAX package's: every module of the
+reference (as ``pkgutil.walk_packages`` finds it), every public name of
+each, and every public member of every class those names export, resolves
+on the port's counterpart.
 
 One case per (package, name): the ``__all__`` of ``repro.core``,
 ``repro.sched``, ``repro.workloads``, ``repro.api``, ``repro.kernels`` and
@@ -9,22 +11,37 @@ still to come, whose cases assert that they are absent; it is empty since
 the training path brought ``repro.kernels.ref``.  Where the reference
 keeps an order, the port's ``__all__`` lists the reference's names in it.
 
-At module level, one case per (module, name) of the reference's public
-names of ``kernels.alloc_matvec``, ``kernels.flash_attention``,
-``kernels.rglru_scan``, ``kernels.rwkv6_scan``, ``kernels.ops``,
-``models.layers`` and ``workloads.registry``; ``DELIBERATE`` lists the
-names the port leaves out on purpose (ROADMAP §3), whose cases assert
-that they are absent.  The kernel modules' entries under the reference's
-names are held against its Pallas kernels in interpret mode on the CPU,
-at its own tests' tolerances (``tests/test_kernels.py``).
+One case per (module, name) of every other module of the reference: its
+``__all__``, or else its public names that are not modules or typing /
+dataclass helpers (``_public``).  ``core.alloc_jax`` maps to
+``core.alloc_torch`` through ``RENAMES``.  The launch tools' modules
+have cases of their own; the reference's ``launch.dryrun`` sets
+``XLA_FLAGS`` for 512 host devices when it is imported, so its names are
+read from its source with ``ast`` and it is never imported here.
+
+One case per (class, member): every public member (``dir``, no leading
+``_``) of every class defined in ``repro`` that those names export, on the
+port's class of the same name.
+
+``DELIBERATE`` lists the names and members the port leaves out on purpose
+(ROADMAP §3), each with its reason; their cases assert that they are
+absent.  The kernel modules' entries under the reference's names are held
+against its Pallas kernels in interpret mode on the CPU, at its own tests'
+tolerances (``tests/test_kernels.py``).
 """
+import ast
 import importlib
 import importlib.util
+import inspect
+import pathlib
+import pkgutil
 import types
 
 import numpy as np
 import pytest
 import torch
+
+import repro
 
 PACKAGES = ("core", "sched", "workloads", "configs", "api", "kernels",
             "train", "")
@@ -36,16 +53,21 @@ def _module(root, pkg):
     return importlib.import_module(root + ("." + pkg if pkg else ""))
 
 
+def _kept(value):
+    """Not a module, nor a typing / dataclass helper."""
+    return not isinstance(value, types.ModuleType) and getattr(
+        value, "__module__", None) not in ("typing", "dataclasses",
+                                           "__future__")
+
+
 def _public(mod):
-    """A module's ``__all__``, or its public names that are not modules or
-    typing / dataclass helpers."""
+    """A module's ``__all__``, or its public names that :func:`_kept`
+    keeps."""
     names = getattr(mod, "__all__", None)
     if names is not None:
         return list(names)
     return [n for n, v in vars(mod).items()
-            if not n.startswith("_") and not isinstance(v, types.ModuleType)
-            and getattr(v, "__module__", None) not in (
-                "typing", "dataclasses", "__future__")]
+            if not n.startswith("_") and _kept(v)]
 
 
 CASES = [(pkg, name) for pkg in PACKAGES
@@ -120,34 +142,43 @@ def test_the_library_line_runs():
 # --------------------------------------------------------------------------- #
 # the launch tools                                                             #
 # --------------------------------------------------------------------------- #
-def _dryrun_public_names():
-    """The reference dry run's public top-level names, read from its source:
-    importing it sets XLA_FLAGS for 512 devices."""
-    import ast
-    import pathlib
-
-    import repro
+def _dryrun_surface():
+    """The reference dry run's public top-level names, with the object each
+    imported name binds (None for its own definitions, none of which is a
+    class), read from its source: importing it sets XLA_FLAGS for 512
+    devices.  Imported names pass ``_public``'s filter, as they would in
+    ``vars()`` of the imported module."""
     src = pathlib.Path(repro.__file__).parent / "launch" / "dryrun.py"
-    names = []
+    names = {}
     for node in ast.parse(src.read_text()).body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-            names.append(node.name)
+            names[node.name] = None
         elif isinstance(node, ast.Assign):
-            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+            names.update((t.id, None) for t in node.targets
+                         if isinstance(t, ast.Name))
         elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
                                                             ast.Name):
-            names.append(node.target.id)
-    return [n for n in names if not n.startswith("_")]
+            names[node.target.id] = None
+        elif isinstance(node, ast.ImportFrom) and node.module != "__future__":
+            src_mod = importlib.import_module(
+                "." * node.level + (node.module or ""), "repro.launch")
+            for alias in node.names:
+                value = getattr(src_mod, alias.name)
+                if _kept(value):
+                    names[alias.asname or alias.name] = value
+    return {n: v for n, v in names.items() if not n.startswith("_")}
+
+
+LAUNCH_SUBS = ("mesh", "roofline", "shardings")
+DRYRUN = _dryrun_surface()
 
 
 def _launch_cases():
     cases = []
-    for sub in ("mesh", "roofline", "shardings"):
-        ref = importlib.import_module(f"repro.launch.{sub}")
-        # the reference's shardings.__all__ names "ShardingPlan", which it
-        # never defines (its plan class is Plan): only names that resolve
-        cases += [(sub, n) for n in ref.__all__ if hasattr(ref, n)]
-    return cases + [("dryrun", n) for n in _dryrun_public_names()]
+    for sub in LAUNCH_SUBS:
+        cases += [(sub, n) for n in
+                  importlib.import_module(f"repro.launch.{sub}").__all__]
+    return cases + [("dryrun", n) for n in DRYRUN]
 
 
 LAUNCH_CASES = _launch_cases()
@@ -157,6 +188,9 @@ LAUNCH_CASES = _launch_cases()
                          ids=[f"launch.{s}.{n}" for s, n in LAUNCH_CASES])
 def test_reference_launch_name_resolves_on_the_port(sub, name):
     port = importlib.import_module(f"repro_torch.launch.{sub}")
+    if (f"launch.{sub}", name) in DELIBERATE:
+        assert not hasattr(port, name), DELIBERATE[(f"launch.{sub}", name)]
+        return
     assert hasattr(port, name), f"repro_torch.launch.{sub}: {name!r}"
 
 
@@ -183,39 +217,125 @@ def test_launch_facade_holds_mesh_roofline_shardings_not_dryrun():
 # --------------------------------------------------------------------------- #
 # module level                                                                #
 # --------------------------------------------------------------------------- #
-MODULES = ("kernels.alloc_matvec", "kernels.flash_attention",
-           "kernels.rglru_scan", "kernels.rwkv6_scan", "kernels.ops",
-           "models.layers", "workloads.registry")
-#: (module, name) of the reference's that the port leaves out on purpose
+#: every module of the reference but the package facades above and the
+#: launch tools, found as pkgutil walks the package
+MODULES = tuple(
+    info.name[len("repro."):]
+    for info in pkgutil.walk_packages(repro.__path__, "repro.")
+    if info.name[len("repro."):] not in PACKAGES
+    and info.name[len("repro."):] not in tuple(
+        f"launch.{sub}" for sub in LAUNCH_SUBS + ("dryrun",)))
+#: the reference module whose port has another name, and its renamed names
+PORT_MODULES = {"core.alloc_jax": "core.alloc_torch"}
+RENAMES = {
+    ("core.alloc_jax", "BatchedAllocator"): "TorchBatchedAllocator",
+    ("core.alloc_jax", "JaxAllocBackend"): "TorchAllocBackend",
+    ("core.alloc_jax", "maxmin_yields_jax"): "maxmin_yields_torch"}
+_XLA_ONLY = ("steers only XLA's partitioner and scan; the port's dry run "
+             "reads the same decisions from its Plan")
+_NO_JAX = "the port imports torch, never jax"
+#: (module, name) and (module, "Class.member") of the reference's that the
+#: port leaves out on purpose, each with its reason
 DELIBERATE = {
     ("kernels.ops", "set_backend"):
         "the device of the data picks the version: no process-wide switch",
     ("kernels.ops", "get_backend"):
-        "the device of the data picks the version: no process-wide switch"}
+        "the device of the data picks the version: no process-wide switch",
+    ("core.alloc_jax", "has_jax"): _NO_JAX,
+    ("models.backbone", "set_act_spec"): _XLA_ONLY,
+    ("models.backbone", "set_ep_spec"): _XLA_ONLY,
+    ("models.backbone", "set_unroll"): _XLA_ONLY,
+    ("launch.shardings", "ShardingPlan"):
+        "named in the reference's __all__ but never defined there: its plan "
+        "class is Plan",
+    ("launch.shardings", "Plan.shard"):
+        "it returns jax NamedShardings; the port's Plan is a layout "
+        "(local_shape, device_bytes)",
+    ("launch.dryrun", "NamedSharding"): _NO_JAX + " (jax's sharding type)",
+    ("launch.dryrun", "P"): _NO_JAX + " (jax's PartitionSpec)"}
 MODULE_CASES = [(m, n) for m in MODULES
                 for n in _public(importlib.import_module("repro." + m))]
+
+
+def _port_module(mod):
+    return importlib.import_module(
+        "repro_torch." + PORT_MODULES.get(mod, mod))
 
 
 @pytest.mark.parametrize("mod,name", MODULE_CASES,
                          ids=[f"{m}.{n}" for m, n in MODULE_CASES])
 def test_reference_module_name_resolves_on_the_port(mod, name):
-    port = importlib.import_module("repro_torch." + mod)
+    port = _port_module(mod)
     if (mod, name) in DELIBERATE:
         assert not hasattr(port, name), DELIBERATE[(mod, name)]
         return
-    assert hasattr(port, name), f"repro_torch.{mod}: {name!r} is missing"
+    name = RENAMES.get((mod, name), name)
+    assert hasattr(port, name), f"{port.__name__}: {name!r} is missing"
 
 
 @pytest.mark.parametrize("mod", [m for m in MODULES if hasattr(
     importlib.import_module("repro." + m), "__all__")])
 def test_port_module_all_holds_the_reference_names(mod):
-    ref = importlib.import_module("repro." + mod).__all__
-    port = importlib.import_module("repro_torch." + mod)
-    assert set(ref) <= set(port.__all__)
+    ref = {RENAMES.get((mod, n), n)
+           for n in importlib.import_module("repro." + mod).__all__
+           if (mod, n) not in DELIBERATE}
+    port = _port_module(mod)
+    assert ref <= set(port.__all__)
     assert len(set(port.__all__)) == len(port.__all__)
     space = {}
     exec(f"from {port.__name__} import *", space)      # noqa: S102
     assert all(n in space for n in port.__all__)
+
+
+# --------------------------------------------------------------------------- #
+# class members                                                               #
+# --------------------------------------------------------------------------- #
+def _exported():
+    """(reference module, name, object) of every case above, with the port
+    module and name it resolves on."""
+    for pkg, name in CASES:
+        yield (getattr(_module("repro", pkg), name, None),
+               "repro_torch" + ("." + pkg if pkg else ""), name)
+    for sub, name in LAUNCH_CASES:
+        ref = (DRYRUN[name] if sub == "dryrun" else getattr(
+            importlib.import_module(f"repro.launch.{sub}"), name, None))
+        yield ref, f"repro_torch.launch.{sub}", name
+    for mod, name in MODULE_CASES:
+        yield (getattr(importlib.import_module("repro." + mod), name),
+               "repro_torch." + PORT_MODULES.get(mod, mod),
+               RENAMES.get((mod, name), name))
+
+
+def _class_cases():
+    """One case per (class, public member), each class once, under the
+    module that defines it; the port's class is found where the first
+    name exporting it resolves."""
+    cases, seen = [], set()
+    for value, port_mod, port_name in _exported():
+        if not (inspect.isclass(value)
+                and value.__module__.startswith("repro.")
+                and id(value) not in seen):
+            continue
+        seen.add(id(value))
+        where = value.__module__[len("repro."):]
+        cases += [(where, value.__qualname__, member, port_mod, port_name)
+                  for member in dir(value) if not member.startswith("_")]
+    return cases
+
+
+CLASS_CASES = _class_cases()
+
+
+@pytest.mark.parametrize("where,cls,member,port_mod,port_name", CLASS_CASES,
+                         ids=[f"{w}.{c}.{m}" for w, c, m, _, _ in CLASS_CASES])
+def test_reference_class_member_resolves_on_the_port(where, cls, member,
+                                                     port_mod, port_name):
+    port = getattr(importlib.import_module(port_mod), port_name)
+    if (where, f"{cls}.{member}") in DELIBERATE:
+        assert not hasattr(port, member), DELIBERATE[(where,
+                                                      f"{cls}.{member}")]
+        return
+    assert hasattr(port, member), f"{port_mod}.{port_name}: {member!r}"
 
 
 def test_workload_kinds_is_the_live_registry():
@@ -317,3 +437,23 @@ def test_split_tree_splits_a_generator_into_independent_streams():
     assert all(torch.equal(d, uinit(g, (8, 8), None, torch.float32, "cpu"))
                for d, g in zip(draws, again))
     assert not torch.equal(draws[0], draws[1])
+
+
+def test_collecting_the_surface_never_imports_the_reference_dry_run():
+    """Building every case above leaves ``repro.launch.dryrun`` (and so its
+    XLA_FLAGS) out of the process (a fresh one, so that no other test's
+    import shows)."""
+    import os
+    import subprocess
+    import sys
+
+    probe = ("import os, sys; sys.path.insert(0, 'tests'); "
+             "flags = os.environ.get('XLA_FLAGS', ''); "
+             "import test_torch_facades as t; "
+             "print(len(t.CLASS_CASES) > 0, "
+             "'repro.launch.dryrun' in sys.modules, "
+             "os.environ.get('XLA_FLAGS', '') == flags)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=300, check=True, cwd=root)
+    assert out.stdout.split() == ["True", "False", "True"]

@@ -100,7 +100,7 @@ def test_port_init_has_the_reference_shapes(model):
     assert len(own["layers"]) == len(layer_plan(cfg)) == 3
 
 
-def test_unported_blocks_raise():
+def test_encdec_vision_blocks_init_and_int8_layout():
     """Every block kind is ported now: the encoder-decoder and the vision
     stub initialise with the reference's leaves (an unknown block kind
     raises ``ValueError``, as the reference's); and the int8 KV layout."""

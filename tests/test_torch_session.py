@@ -324,7 +324,7 @@ def test_restore_refuses_bad_versions_and_missing_keys():
 
 
 @pytest.mark.parametrize("key", ["narrator", "autotune"])
-def test_unported_state_keys_raise(key):
+def test_narrator_and_autotune_state_keys_restore_or_raise(key):
     """Both keys are ported now: a malformed payload under either raises,
     and a well-formed one restores."""
     ses, _ = _pair("GreedyP */OPT=MIN", n_jobs=20, n_nodes=8)

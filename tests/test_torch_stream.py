@@ -244,7 +244,7 @@ def test_swf_stream_kind_equals_swf_and_reference(tmp_path, seed, n_jobs):
     assert np.array_equal(np.concatenate([c.jid for c in mine]), mat.jid)
 
 
-def test_stream_trace_falls_back_to_iter_chunks_and_tpu_is_unported():
+def test_stream_trace_falls_back_to_iter_chunks_for_lublin_and_tpu():
     """Kinds without a native streamer (Lublin, and the tpu job mix, which
     is ported now) stream through ``iter_chunks``."""
     for w in (WorkloadSpec("lublin", n_jobs=80, n_nodes=16, seed=2),

@@ -121,7 +121,7 @@ def test_registry_lists_the_ported_kinds():
 
 
 @pytest.mark.parametrize("kind", ["tpu"])
-def test_unported_kinds_raise_naming_the_roadmap(kind):
+def test_tpu_kind_keeps_the_reference_knob_contract(kind):
     """Every kind is ported now: the former one keeps the reference's knob
     contract (no path argument, no ``path`` param) instead."""
     for make in (RefWorkload, WorkloadSpec):
